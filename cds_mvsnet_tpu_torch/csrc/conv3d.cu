@@ -1,0 +1,70 @@
+// K2: direct 3x3x3 conv (stride 1, pad 1) + bias + ReLU, 8 output channels.
+// Wrapper, plain version and design note: ops/kernels/conv3d.py.
+#include "common.cuh"
+
+constexpr int O = 8;
+constexpr int TX = 32, TY = 8;
+
+__global__ void __launch_bounds__(TX * TY) conv3d_bn_relu_kernel(
+    const bf16* __restrict__ vol,   // (C, D, h, w)
+    const float* __restrict__ wt,   // (O, C, 3, 3, 3), eval BN folded in
+    const float* __restrict__ bias, // (O,)
+    bf16* __restrict__ out,         // (O, D, h, w)
+    int C, int D, int h, int w) {
+  extern __shared__ float ws[];  // [c][tap][o]: the O weights of one tap side by side
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  for (int i = tid; i < C * 27 * O; i += TX * TY) {
+    const int o = i % O, ct = i / O;  // ct = c * 27 + tap
+    ws[i] = wt[o * C * 27 + ct];
+  }
+  __syncthreads();
+
+  const int x = blockIdx.x * TX + threadIdx.x;
+  const int y = blockIdx.y * TY + threadIdx.y;
+  const int d = blockIdx.z;
+  if (x >= w || y >= h) return;
+  const size_t hw = (size_t)h * w;
+
+  float acc[O];
+#pragma unroll
+  for (int o = 0; o < O; ++o) acc[o] = 0.f;
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int kd = 0; kd < 3; ++kd) {
+      const int dz = d + kd - 1;
+      if (dz < 0 || dz >= D) continue;
+      const bf16* plane = vol + ((size_t)c * D + dz) * hw;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const int yy = y + ky - 1;
+        if (yy < 0 || yy >= h) continue;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const int xx = x + kx - 1;
+          if (xx < 0 || xx >= w) continue;
+          const float v = bf2f(plane[(size_t)yy * w + xx]);
+          const float* wp = ws + (c * 27 + kd * 9 + ky * 3 + kx) * O;
+#pragma unroll
+          for (int o = 0; o < O; ++o) acc[o] = fmaf(v, wp[o], acc[o]);
+        }
+      }
+    }
+  }
+  const size_t pix = (size_t)y * w + x;
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    out[((size_t)o * D + d) * hw + pix] = f2bf(fmaxf(acc[o] + __ldg(bias + o), 0.f));
+  }
+}
+
+CDS_EXPORT int conv3d_bn_relu_launch(const void* vol, const void* wt, const void* bias,
+                                     void* out, int C, int D, int h, int w, void* stream) {
+  const dim3 block(TX, TY);
+  const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, D);
+  const size_t smem = (size_t)C * 27 * O * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  conv3d_bn_relu_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(vol), static_cast<const float*>(wt),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), C, D, h, w);
+  return (int)cudaGetLastError();
+}

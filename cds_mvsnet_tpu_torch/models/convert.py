@@ -1,0 +1,121 @@
+"""Weight bridge: the JAX package's parameter tree -> this package's modules.
+
+The JAX param tree mirrors the upstream ``state_dict`` paths, and so do this
+package's module names, so a leaf's dotted path is its ``state_dict`` key.
+Only layouts differ, and this module inverts the JAX package's maps
+(``cds_mvsnet_tpu/models/convert.py:86-104``):
+
+- conv2d ``(kh, kw, I, O)`` HWIO -> ``(O, I, kh, kw)``;
+- conv3d ``(kd, kh, kw, I, O)`` DHWIO -> ``(O, I, kd, kh, kw)``;
+- transposed conv, stored spatially flipped as ``(k..., I, O)`` -> un-flipped
+  ``(I, O, k...)`` for ``F.conv_transpose3d`` (stride 2, padding 1,
+  output_padding 1);
+- 1-D leaves (biases, norm parameters and statistics) unchanged.
+
+``refine_network`` leaves are skipped until refinement is ported; any other
+leaf that finds no parameter raises, as does a parameter no leaf fills.
+Numpy only, besides torch: the tree's leaves are numpy arrays (or anything
+``np.asarray`` takes).
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = [
+    "flatten_params",
+    "unflatten_params",
+    "save_params",
+    "load_params",
+    "params_from_jax",
+    "load_into",
+]
+
+Params = dict[str, Any]
+
+_DECONV_PATTERNS = [
+    re.compile(r"^refine_network\.deconv\.weight$"),
+    re.compile(r"^cost_regularization(\.\d+)?\.conv(7|9|11)\.conv\.weight$"),
+]
+DEFERRED_PREFIXES = ("refine_network.",)
+
+
+def flatten_params(tree: Params, prefix: str = "") -> dict[str, Any]:
+    """Nested tree -> ``{dotted.key: leaf}``."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(flatten_params(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
+def unflatten_params(flat: dict[str, Any]) -> Params:
+    tree: Params = {}
+    for key, arr in flat.items():
+        node = tree
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def save_params(path, tree: Params) -> None:
+    """Write a tree as an ``.npz`` with dotted keys (the JAX package's format)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{k: np.asarray(v) for k, v in flatten_params(tree).items()})
+
+
+def load_params(path) -> Params:
+    with np.load(path) as data:
+        return unflatten_params({k: data[k] for k in data.files})
+
+
+def _to_torch_layout(key: str, arr: np.ndarray) -> np.ndarray:
+    if any(p.match(key) for p in _DECONV_PATTERNS):
+        spatial = tuple(range(arr.ndim - 2))
+        arr = np.transpose(np.flip(arr, axis=spatial), (arr.ndim - 2, arr.ndim - 1, *spatial))
+    elif arr.ndim == 4:
+        arr = np.transpose(arr, (3, 2, 0, 1))
+    elif arr.ndim == 5:
+        arr = np.transpose(arr, (4, 3, 0, 1, 2))
+    return arr
+
+
+def params_from_jax(params) -> dict[str, torch.Tensor]:
+    """A JAX param tree (numpy leaves) or the path of an ``.npz`` written by
+    ``save_params`` -> ``{state_dict key: fp32 tensor}`` in torch layouts,
+    without the deferred ``refine_network`` leaves."""
+    tree = load_params(params) if isinstance(params, (str, Path)) else params
+    out = {}
+    for key, leaf in flatten_params(tree).items():
+        if key.startswith(DEFERRED_PREFIXES):
+            continue
+        arr = _to_torch_layout(key, np.asarray(leaf, dtype=np.float32))
+        out[key] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def load_into(model: torch.nn.Module, params) -> None:
+    """Load a JAX tree or ``.npz`` into ``model``; every leaf must land on a
+    parameter or buffer of the same shape, and every one must be filled."""
+    state = params_from_jax(params)
+    own = model.state_dict()
+    unplaced = sorted(set(state) - set(own))
+    if unplaced:
+        raise KeyError(f"{len(unplaced)} leaves have no place in the model: {unplaced[:5]}")
+    unfilled = sorted(set(own) - set(state))
+    if unfilled:
+        raise KeyError(f"{len(unfilled)} model entries have no leaf: {unfilled[:5]}")
+    bad = [(k, tuple(v.shape), tuple(own[k].shape)) for k, v in state.items() if v.shape != own[k].shape]
+    if bad:
+        raise ValueError(f"shape mismatch (leaf, model): {bad[:5]}")
+    model.load_state_dict(state, strict=True)

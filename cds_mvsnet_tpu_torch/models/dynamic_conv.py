@@ -1,0 +1,83 @@
+"""Curvature-guided dynamic-scale convolution (eval).
+
+Counterpart of ``cds_mvsnet_tpu/models/dynamic_conv.py``. Per candidate kernel
+size k, a conv and a 3-channel curvature-coefficient conv share the input and
+run as one conv over concatenated weights; the directional curvature along
+the epipolar direction ``(u, v)`` is ``coeffs · (u², 2uv, v²)``, and a 1x1
+MLP with eval BN and a temperature softmax (fp32) mixes the branches per
+pixel. All branches can run as one launch of K4 (``ops/kernels/dynconv.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import BatchNorm, conv2d
+
+__all__ = ["DynamicConv", "epipolar_direction_quadratic"]
+
+
+def epipolar_direction_quadratic(epipole: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """``(u², 2uv, v²)`` of the unit epipolar direction per pixel, in fp32:
+    ``epipole (N, 2)`` pixels -> ``(N, 3, H, W)``."""
+    e = epipole.float()
+    xs = torch.arange(width, dtype=torch.float32, device=e.device)
+    ys = torch.arange(height, dtype=torch.float32, device=e.device)
+    N = e.shape[0]
+    u = (xs[None, None, :] - e[:, 0, None, None]).expand(N, height, width)
+    v = (ys[None, :, None] - e[:, 1, None, None]).expand(N, height, width)
+    norm = torch.sqrt(u * u + v * v)
+    u = u / (norm + 1e-6)
+    v = v / (norm + 1e-6)
+    return torch.stack([u * u, 2 * u * v, v * v], dim=1)
+
+
+class DynamicConv(nn.Module):
+    def __init__(self, in_c: int, out_c: int, size_kernels: tuple[int, ...], bias: bool = True,
+                 hidden_dim: int = 4):
+        super().__init__()
+        self.size_kernels = tuple(size_kernels)
+        self.att_convs = nn.ModuleList(nn.Conv2d(in_c, 3, k, bias=False) for k in size_kernels)
+        self.convs = nn.ModuleList(nn.Conv2d(in_c, out_c, k, bias=bias) for k in size_kernels)
+        nk = len(size_kernels)
+        self.att_weights = nn.Sequential(
+            nn.Conv2d(nk, hidden_dim, 1, bias=False),
+            BatchNorm(hidden_dim),
+            nn.ReLU(),
+            nn.Conv2d(hidden_dim, nk, 1, bias=False),
+        )
+
+    def forward(self, x, epipole, temperature: float, branches=None):
+        """``x (N,I,H,W)``, ``epipole (N,2)`` -> ``(out (N,O,H,W), norm_curv (N,H,W))``.
+
+        ``branches``: None runs one conv per branch; else a function of
+        ``(x, weights)`` that runs them all at once (K4's wrapper or its plain
+        version).
+        """
+        N, _, H, W = x.shape
+        quad = epipolar_direction_quadratic(epipole, H, W).to(x.dtype)
+        fused = [torch.cat([c.weight, a.weight], 0) for c, a in zip(self.convs, self.att_convs)]
+        if branches is None:
+            ys = [conv2d(x, w) for w in fused]
+        else:
+            ys = branches(x, [w.contiguous() for w in fused]).split(fused[0].shape[0], dim=1)
+
+        curvs, results = [], []
+        for conv, y in zip(self.convs, ys):
+            out_c = conv.weight.shape[0]
+            res, coef = y[:, :out_c], y[:, out_c:]
+            if conv.bias is not None:
+                res = res + conv.bias.to(res.dtype)[None, :, None, None]
+            curvs.append((coef * quad).sum(1, keepdim=True))
+            results.append(res)
+        curvs = torch.cat(curvs, 1)  # (N, K, H, W)
+        att = self.att_weights
+        w = conv2d(curvs, att[0].weight)
+        w = torch.relu(att[1](w))
+        w = conv2d(w, att[3].weight)
+        # temperature softmax in fp32: at T=0.01 the logits scale by 100
+        w = torch.softmax(w.float() / temperature, dim=1).to(x.dtype)
+        out = sum(results[i] * w[:, i : i + 1] for i in range(len(results)))
+        norm_curv = (curvs * w).sum(1)
+        return out, norm_curv

@@ -1,0 +1,110 @@
+"""Dynamic-scale FPN feature extractor (eval).
+
+Counterpart of ``cds_mvsnet_tpu/models/feature_net.py``: six dynamic convs over
+three scales, strided plain convs for downsampling, 1x1 lateral merges and a
+DynamicConv + InstanceNorm + tanh head per stage. Per stage it returns
+``(features, mean squared curvature, |curvature|)`` with 32/16/8 channels at
+1/4, 1/2 and 1/1 of the input resolution.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.resize import upsample2x_nearest
+from .dynamic_conv import DynamicConv
+from .layers import conv2d, instance_norm, leaky_relu
+
+__all__ = ["FeatureNet", "FEATURE_OUT_CHANNELS"]
+
+BASE_CHANNELS = 8
+FEATURE_OUT_CHANNELS = (BASE_CHANNELS * 4, BASE_CHANNELS * 2, BASE_CHANNELS)
+
+# kernel sizes of each dynamic conv
+DYN_KERNELS = {
+    "conv00": (3, 7, 11),
+    "conv01": (3, 5, 7),
+    "conv10": (3, 5),
+    "conv11": (3, 5),
+    "conv20": (1, 3),
+    "conv21": (1, 3),
+    "out1": (1, 3),
+    "out2": (1, 3),
+    "out3": (1, 3),
+}
+
+
+class PlainBlock(nn.Module):
+    """Bias-free conv + InstanceNorm + leaky_relu(0.1)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv = nn.Conv2d(cin, cout, k, bias=False)
+
+    def forward(self, x):
+        return leaky_relu(instance_norm(conv2d(x, self.conv.weight, stride=self.stride)))
+
+
+class DynBlock(nn.Module):
+    """Bias-free DynamicConv + InstanceNorm + leaky_relu(0.1)."""
+
+    def __init__(self, cin: int, cout: int, name: str):
+        super().__init__()
+        self.conv = DynamicConv(cin, cout, DYN_KERNELS[name], bias=False)
+
+    def forward(self, x, epipole, temperature, branches=None):
+        y, nc = self.conv(x, epipole, temperature, branches)
+        return leaky_relu(instance_norm(y)), nc
+
+
+class FeatureNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        b = BASE_CHANNELS
+        self.conv00 = DynBlock(3, b, "conv00")
+        self.conv01 = DynBlock(b, b, "conv01")
+        self.downsample1 = PlainBlock(b, 2 * b, 3, stride=2)
+        self.conv10 = DynBlock(2 * b, 2 * b, "conv10")
+        self.conv11 = DynBlock(2 * b, 2 * b, "conv11")
+        self.downsample2 = PlainBlock(2 * b, 4 * b, 3, stride=2)
+        self.conv20 = DynBlock(4 * b, 4 * b, "conv20")
+        self.conv21 = DynBlock(4 * b, 4 * b, "conv21")
+        self.out1 = DynamicConv(4 * b, 4 * b, DYN_KERNELS["out1"], bias=True)
+        self.inner1 = PlainBlock(6 * b, 2 * b, 1)
+        self.out2 = DynamicConv(2 * b, 2 * b, DYN_KERNELS["out2"], bias=True)
+        self.inner2 = PlainBlock(3 * b, b, 1)
+        self.out3 = DynamicConv(b, b, DYN_KERNELS["out3"], bias=True)
+
+    def forward(self, x, epipole, temperature: float, conv01_branches=None):
+        """``x (N,3,H,W)``, ``epipole (N,2)`` -> ``{stage: (feat, nc_sum, |nc|)}``.
+
+        ``conv01_branches`` runs conv01's branches in one call (K4's wrapper
+        or its plain version); None runs one conv per branch.
+        """
+        conv00, nc00 = self.conv00(x, epipole, temperature)
+        conv01, nc01 = self.conv01(conv00, epipole, temperature, conv01_branches)
+        epi0 = epipole / 2
+        conv10, nc10 = self.conv10(self.downsample1(conv01), epi0, temperature)
+        conv11, nc11 = self.conv11(conv10, epi0, temperature)
+        epi1 = epipole / 4
+        conv20, nc20 = self.conv20(self.downsample2(conv11), epi1, temperature)
+        conv21, nc21 = self.conv21(conv20, epi1, temperature)
+
+        outputs = {}
+        intra = conv21
+        out, nc22 = self.out1(intra, epi1, temperature)
+        out = torch.tanh(instance_norm(out))
+        outputs["stage1"] = (out, (nc20**2 + nc21**2 + nc22**2) / 3, nc22.abs())
+
+        intra = self.inner1(torch.cat([upsample2x_nearest(intra), conv11], 1))
+        out, nc12 = self.out2(intra, epi0, temperature)
+        out = torch.tanh(instance_norm(out))
+        outputs["stage2"] = (out, (nc10**2 + nc11**2 + nc12**2) / 3, nc12.abs())
+
+        intra = self.inner2(torch.cat([upsample2x_nearest(out), conv01], 1))
+        out, nc02 = self.out3(intra, epipole, temperature)
+        out = torch.tanh(instance_norm(out))
+        outputs["stage3"] = (out, (nc00**2 + nc01**2 + nc02**2) / 3, nc02.abs())
+        return outputs

@@ -1,0 +1,44 @@
+"""Bilinear sampling at pixel coordinates with zeros padding.
+
+Counterpart of ``cds_mvsnet_tpu/ops/grid_sample.py::grid_sample_pixel``:
+``F.grid_sample(mode="bilinear", padding_mode="zeros", align_corners=True)``
+written directly in pixel coordinates, with one in-bounds mask per corner.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["grid_sample_pixel"]
+
+
+def grid_sample_pixel(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sample ``src (B,H,W,C)`` at pixel coordinates ``x, y (B,*S)``.
+
+    Returns ``(B,*S,C)``; a corner outside the image contributes zero.
+    """
+    B, H, W, C = src.shape
+    sample_shape = x.shape[1:]
+    x = x.reshape(B, -1)
+    y = y.reshape(B, -1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    tx = (x - x0).to(src.dtype)
+    ty = (y - y0).to(src.dtype)
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    src_flat = src.reshape(B, H * W, C)
+
+    def corner(xi, yi, w):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        vals = torch.gather(src_flat, 1, idx[:, :, None].expand(-1, -1, C))
+        return vals * (w * inb.to(src.dtype))[:, :, None]
+
+    out = (
+        corner(x0i, y0i, (1 - tx) * (1 - ty))
+        + corner(x0i + 1, y0i, tx * (1 - ty))
+        + corner(x0i, y0i + 1, (1 - tx) * ty)
+        + corner(x0i + 1, y0i + 1, tx * ty)
+    )
+    return out.reshape(B, *sample_shape, C)

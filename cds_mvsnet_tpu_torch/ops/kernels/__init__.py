@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels of the eval cascade, one module each.
+
+Every module holds the wrapper (a CUDA tensor launches the kernel or raises;
+a CPU tensor takes the plain version), the plain PyTorch version of the same
+function, and the wrapper's launch count (``<wrapper>.launches``, a plain
+int that grows by one per launch and nowhere else).
+"""
+
+from .conv3d import conv3d_bn_relu, conv3d_bn_relu_plain, fold_bn_into_conv3d
+from .dynconv import dynconv_branches, dynconv_branches_plain
+from .regress import exit_softargmin, exit_softargmin_plain
+from .warp import warp_entropy, warp_entropy_plain
+
+KERNELS = (warp_entropy, conv3d_bn_relu, exit_softargmin, dynconv_branches)
+
+__all__ = [
+    "KERNELS",
+    "conv3d_bn_relu",
+    "conv3d_bn_relu_plain",
+    "dynconv_branches",
+    "dynconv_branches_plain",
+    "exit_softargmin",
+    "exit_softargmin_plain",
+    "fold_bn_into_conv3d",
+    "warp_entropy",
+    "warp_entropy_plain",
+]
