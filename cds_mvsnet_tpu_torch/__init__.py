@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the CDS-MVSNet eval cascade for one NVIDIA H100.
+"""PyTorch/CUDA port of CDS-MVSNet (the eval cascade and training) for one
+NVIDIA H100.
 
 The JAX package ``cds_mvsnet_tpu`` is the reference this package is held
 against; nothing here imports it or JAX. Module names follow the JAX package

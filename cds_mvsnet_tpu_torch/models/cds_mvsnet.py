@@ -1,39 +1,49 @@
-"""CDS-MVSNet: the three-stage cascaded plane-sweep depth network, eval.
+"""CDS-MVSNet: the three-stage cascaded plane-sweep depth network.
 
-Counterpart of ``cds_mvsnet_tpu/models/cds_mvsnet.py::apply_cds_mvsnet`` with
-``train=False`` and ``refine=False``. Public layouts are the JAX package's:
-``imgs (B, V, H, W, 3)``, ``proj_matrices[stage] (B, V, 2, 4, 4)``,
-``depth_values (B, D)``; the output holds per-stage dicts (``depth``,
-``photometric_confidence``, ``norm_curv``) and ``refined_depth``.
+Counterpart of ``cds_mvsnet_tpu/models/cds_mvsnet.py::apply_cds_mvsnet``:
+:meth:`CDSMVSNet.forward` is its eval form (``train=False``) and
+:meth:`CDSMVSNet.forward_train` its train form (``train=True`` with
+``gt_depths``). Public layouts are the JAX package's: ``imgs (B, V, H, W,
+3)``, ``proj_matrices[stage] (B, V, 2, 4, 4)``, ``depth_values (B, D)``; the
+output holds per-stage dicts (``depth``, ``photometric_confidence``,
+``norm_curv``, and in training ``feat_distance`` and ``feat_target``) and
+``refined_depth``. With ``refine`` the cascade runs at half resolution and
+the refinement head (``models/refinement.py``) brings stage 3's depth to the
+input resolution.
 
 The 2·(V−1) FeatureNet calls of the upstream model (one per (ref, src) pair,
 since the reference image's epipole differs per pair) run as one batch in the
-order ``[ref × (V−1), src × (V−1)]``; InstanceNorm is per sample and BN uses
-running statistics, so batching changes nothing at eval.
+order ``[ref × (V−1), src × (V−1)]``. InstanceNorm is per sample; in
+training each attention BN keeps statistics per call (``bn_groups``) and
+moves its running statistics in the upstream call order (``bn_order``).
 
 Geometry, softmaxes, entropy and regression stay fp32 whatever
-``compute_dtype`` is. In bf16 the four kernel sites run the hand-written
-kernels (``kernels=True``, the default) or their plain versions; fp32 always
-runs the plain versions, as the JAX package keeps its fp32 evals off the
-Pallas kernels.
+``compute_dtype`` is. In bf16 the kernel sites run the hand-written kernels
+(``kernels=True``, the default) or their plain versions: K1-K4 at eval, K5
+in training; fp32 always runs the plain versions, as the JAX package keeps
+its fp32 runs off the Pallas kernels.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
+from ..ops import kernels as K
 from ..ops.geometry import epipole_from_fundamental, fundamental_matrix
-from ..ops.resize import resize_linear
+from ..ops.resize import resize_linear, resize_nearest
 from ..ops.sampling import initial_depth_hypotheses, refined_depth_hypotheses
 from .convert import load_into
 from .cost_reg import CostRegNet
 from .feature_net import FEATURE_OUT_CHANNELS, FeatureNet
-from .layers import reset_parameters
-from .stage_net import KERNEL_OPS, PLAIN_OPS, StageNet, stage_net
+from .layers import StatsCollector, reset_parameters
+from .refinement import RefineNet
+from .stage_net import KERNEL_OPS, PLAIN_OPS, StageNet, stage_net, stage_net_train
 
-__all__ = ["CDSMVSNet", "build_model", "pairwise_epipoles", "resolve_device", "strict_fp32", "to_tensors"]
+__all__ = ["CDSMVSNet", "build_model", "feat_target", "pairwise_epipoles", "resolve_device", "strict_fp32",
+           "to_tensors"]
 
 
 def resolve_device(device) -> torch.device:
@@ -76,15 +86,55 @@ class CDSMVSNet(nn.Module):
                 str(i): CostRegNet(FEATURE_OUT_CHANNELS[i], cfg.cr_base_chs[i])
                 for i in range(cfg.num_stages)
             })
+        if cfg.refine:
+            self.refine_network = RefineNet()
 
     @torch.no_grad()
     def forward(self, imgs, proj_matrices, depth_values, temperature: float = 0.001,
                 compute_dtype=torch.float32, kernels: bool = True):
-        cfg = self.cfg
-        if cfg.refine:
-            raise NotImplementedError("refinement is not ported yet: use ModelConfig(refine=False)")
+        """Eval: every BN on its running statistics."""
         ops = KERNEL_OPS if kernels and compute_dtype == torch.bfloat16 else PLAIN_OPS
+        return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=ops)
+
+    def forward_train(self, imgs, proj_matrices, depth_values, gt_depths, stats: StatsCollector,
+                      temperature: float = 0.01, compute_dtype=torch.float32, kernels: bool = True,
+                      remat_features: bool = False):
+        """Train: every BN on batch statistics, recorded into ``stats`` (the
+        caller applies them after its optimizer step); ``gt_depths[stage]
+        (B, h, w)`` give each stage's GT similarity plane and
+        ``feat_target``. ``remat_features`` recomputes the FeatureNet in the
+        backward (``torch.utils.checkpoint``)."""
+        warp = K.fused_warp_train if kernels and compute_dtype == torch.bfloat16 else K.warp_sim_plain
+        return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, warp=warp,
+                             stats=stats, gt_depths=gt_depths, remat_features=remat_features)
+
+    def _features(self, stacked, epis, temperature, ops, stats, remat_features, V):
+        if stats is None:
+            return self.feature(stacked, epis, temperature, conv01_branches=ops.dynconv)
+        # stack group kind·(V−1)+v is upstream call 2v+kind (ref_v, then src_v)
+        bn = {"bn_groups": 2 * (V - 1), "bn_order": tuple(2 * v + kind for kind in (0, 1) for v in range(V - 1))}
+        if not remat_features:
+            return self.feature(stacked, epis, temperature, stats=stats, **bn)
+        # The recompute in the backward runs the FeatureNet again; its BN
+        # records go to a collector of its own and are dropped, so the
+        # running statistics move once.
+        first = []
+
+        def run(x, e):
+            local = StatsCollector()
+            out = self.feature(x, e, temperature, stats=local, **bn)
+            first.append(local)
+            return out
+
+        feats = checkpoint(run, stacked, epis, use_reentrant=False)
+        stats.calls.extend(first[0].calls)
+        return feats
+
+    def _cascade(self, imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=PLAIN_OPS,
+                 warp=None, stats=None, gt_depths=None, remat_features=False):
+        cfg = self.cfg
         B, V, H, W, _ = imgs.shape
+        height, width = (H // 2, W // 2) if cfg.refine else (H, W)
         depth_values = depth_values.float()
         depth_min = depth_values[:, 0]
         depth_max = depth_values[:, -1]
@@ -92,19 +142,20 @@ class CDSMVSNet(nn.Module):
 
         cams3 = proj_matrices["stage3"].float()
         ref_epi, src_epi = pairwise_epipoles(cams3[:, 0], cams3[:, 1:])
-        ref_rep = imgs[:, 0][None].expand(V - 1, B, H, W, 3)
-        srcs = imgs[:, 1:].transpose(0, 1)
-        stacked = torch.cat([ref_rep, srcs]).reshape(2 * (V - 1) * B, H, W, 3)
+        work = imgs if (height, width) == (H, W) else resize_nearest(imgs, (height, width), dims=(2, 3))
+        ref_rep = work[:, 0][None].expand(V - 1, B, height, width, 3)
+        srcs = work[:, 1:].transpose(0, 1)
+        stacked = torch.cat([ref_rep, srcs]).reshape(2 * (V - 1) * B, height, width, 3)
         stacked = stacked.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
         epis = torch.cat([ref_epi.transpose(0, 1), src_epi.transpose(0, 1)]).reshape(-1, 2)
-        feats = self.feature(stacked, epis, temperature, conv01_branches=ops.dynconv)
+        feats = self._features(stacked, epis, temperature, ops, stats, remat_features, V)
 
         outputs = {}
         depth = None
         for s in range(cfg.num_stages):
             name = f"stage{s + 1}"
             scale = int(cfg.stage_scales[s])
-            h_s, w_s = H // scale, W // scale
+            h_s, w_s = height // scale, width // scale
             ndepth = cfg.ndepths[s]
             per = [t.reshape(2, V - 1, B, *t.shape[1:]) for t in feats[name]]
             features = [
@@ -114,7 +165,8 @@ class CDSMVSNet(nn.Module):
             if depth is None:
                 hyp = initial_depth_hypotheses(depth_values, ndepth)
             else:
-                cur = resize_linear(depth[:, None], (H, W), dims=(2, 3))[:, 0]
+                cur = depth.detach() if cfg.grad_method == "detach" else depth
+                cur = resize_linear(cur[:, None], (height, width), dims=(2, 3))[:, 0]
                 hyp = refined_depth_hypotheses(
                     cur, ndepth,
                     (cfg.depth_intervals_ratio[s] * depth_interval)[:, None, None],
@@ -123,34 +175,63 @@ class CDSMVSNet(nn.Module):
                     out_hw=(h_s, w_s),
                 )
             cost_reg = self.cost_regularization if cfg.share_cr else self.cost_regularization[str(s)]
-            out = stage_net(self.stage_net.vis[str(s)], cost_reg, features,
-                            proj_matrices[name].float(), hyp, ops)
+            vis_head = self.stage_net.vis[str(s)]
+            cams = proj_matrices[name].float()
+            if stats is None:
+                out = stage_net(vis_head, cost_reg, features, cams, hyp, ops)
+            else:
+                gt = None if gt_depths is None else gt_depths[name].float()
+                out = stage_net_train(vis_head, cost_reg, features, cams, hyp, warp, stats, gt)
+                if gt is not None:
+                    out["feat_target"] = feat_target(hyp, gt, depth_interval * cfg.stage_scales[s],
+                                                     cfg.stage_scales[s])
             depth = out["depth"]
             outputs[name] = out
-        outputs["refined_depth"] = depth
+
+        if cfg.refine:
+            scale = depth_interval[:, None, None]
+            img = imgs[:, 0].permute(0, 3, 1, 2).to(compute_dtype)
+            refined = self.refine_network(img, depth.detach() / scale, depth_min / depth_interval,
+                                          depth_max / depth_interval, stats)
+            outputs["refined_depth"] = refined * scale
+        else:
+            outputs["refined_depth"] = depth
         return outputs
 
 
+def feat_target(hyp, gt, interval, scale: float) -> torch.Tensor:
+    """The BCE target of ``feat_distance``: 1 where a hypothesis lies within
+    ``0.5 / scale`` stage intervals of the GT depth, then the GT plane's 1s:
+    ``hyp (B, D[, h, w])``, ``gt (B, h, w)``, ``interval (B,)`` ->
+    ``(B, D + 1, h, w)``."""
+    B, h, w = gt.shape
+    samples = hyp[:, :, None, None] if hyp.ndim == 2 else hyp
+    near = ((samples - gt[:, None]).abs() / interval[:, None, None, None]) < (0.5 / scale)
+    near = near.expand(B, hyp.shape[1], h, w).float()
+    return torch.cat([near, torch.ones((B, 1, h, w), device=gt.device)], 1)
+
+
 def to_tensors(batch: dict, device) -> dict:
-    """A batch of numpy arrays (``imgs``, ``proj_matrices``, ``depth_values``)
-    as fp32 tensors on ``device``."""
+    """A batch of numpy arrays (``imgs``, ``proj_matrices``, ``depth_values``
+    and, for training, the ``depth`` and ``mask`` pyramids) as fp32 tensors
+    on ``device``."""
     dev = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    return {
-        "imgs": t(batch["imgs"]),
-        "proj_matrices": {k: t(v) for k, v in batch["proj_matrices"].items()},
-        "depth_values": t(batch["depth_values"]),
-    }
+    out = {"imgs": t(batch["imgs"]), "depth_values": t(batch["depth_values"])}
+    for key in ("proj_matrices", "depth", "mask"):
+        if key in batch:
+            out[key] = {k: t(v) for k, v in batch[key].items()}
+    return out
 
 
 def build_model(cfg: ModelConfig = ModelConfig(refine=False), params=None, seed: int = 0,
                 device="cuda") -> CDSMVSNet:
-    """The eval model on ``device``: weights from ``params`` (a JAX param tree
-    or an ``.npz`` from ``save_params``, see ``models.convert``), else a
-    seeded init from ``torch.Generator().manual_seed(seed)``."""
+    """The model on ``device``: weights from ``params`` (a JAX param tree or
+    an ``.npz`` from ``save_params``, see ``models.convert``), else a seeded
+    init from ``torch.Generator().manual_seed(seed)``."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32()

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameter tree -> this package's modules.
+"""Weight bridge between the JAX package's parameter tree and this package's
+modules, both ways.
 
 The JAX param tree mirrors the upstream ``state_dict`` paths, and so do this
 package's module names, so a leaf's dotted path is its ``state_dict`` key.
@@ -7,14 +8,19 @@ Only layouts differ, and this module inverts the JAX package's maps
 
 - conv2d ``(kh, kw, I, O)`` HWIO -> ``(O, I, kh, kw)``;
 - conv3d ``(kd, kh, kw, I, O)`` DHWIO -> ``(O, I, kd, kh, kw)``;
-- transposed conv, stored spatially flipped as ``(k..., I, O)`` -> un-flipped
-  ``(I, O, k...)`` for ``F.conv_transpose3d`` (stride 2, padding 1,
-  output_padding 1);
+- transposed conv (the cost-reg UNet's 3-D ones and refinement's 2-D one),
+  stored spatially flipped as ``(k..., I, O)`` -> un-flipped ``(I, O, k...)``
+  for ``F.conv_transpose{2,3}d`` (stride 2, padding 1, output_padding 1);
 - 1-D leaves (biases, norm parameters and statistics) unchanged.
 
-``refine_network`` leaves are skipped until refinement is ported; any other
-leaf that finds no parameter raises, as does a parameter no leaf fills.
-Numpy only, besides torch: the tree's leaves are numpy arrays (or anything
+:func:`params_to_jax` applies the maps the other way, so a checkpoint this
+package writes (:func:`save_model`) is an ``.npz`` in the format of the JAX
+package's ``save_params``, which its ``load_params`` reads.
+
+A leaf that finds no parameter raises, as does a parameter no leaf fills;
+only a model built without refinement skips the tree's ``refine_network``
+leaves, as the JAX eval CLI does with ``--no_refinement``. Numpy only,
+besides torch: the tree's leaves are numpy arrays (or anything
 ``np.asarray`` takes).
 """
 
@@ -33,7 +39,9 @@ __all__ = [
     "save_params",
     "load_params",
     "params_from_jax",
+    "params_to_jax",
     "load_into",
+    "save_model",
 ]
 
 Params = dict[str, Any]
@@ -42,7 +50,7 @@ _DECONV_PATTERNS = [
     re.compile(r"^refine_network\.deconv\.weight$"),
     re.compile(r"^cost_regularization(\.\d+)?\.conv(7|9|11)\.conv\.weight$"),
 ]
-DEFERRED_PREFIXES = ("refine_network.",)
+REFINE_PREFIX = "refine_network."
 
 
 def flatten_params(tree: Params, prefix: str = "") -> dict[str, Any]:
@@ -90,18 +98,42 @@ def _to_torch_layout(key: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _to_jax_layout(key: str, arr: np.ndarray) -> np.ndarray:
+    if any(p.match(key) for p in _DECONV_PATTERNS):
+        spatial = tuple(range(arr.ndim - 2))
+        arr = np.flip(np.transpose(arr, (*range(2, arr.ndim), 0, 1)), axis=spatial)
+    elif arr.ndim == 4:
+        arr = np.transpose(arr, (2, 3, 1, 0))
+    elif arr.ndim == 5:
+        arr = np.transpose(arr, (2, 3, 4, 1, 0))
+    return arr
+
+
 def params_from_jax(params) -> dict[str, torch.Tensor]:
     """A JAX param tree (numpy leaves) or the path of an ``.npz`` written by
-    ``save_params`` -> ``{state_dict key: fp32 tensor}`` in torch layouts,
-    without the deferred ``refine_network`` leaves."""
+    ``save_params`` -> ``{state_dict key: fp32 tensor}`` in torch layouts."""
     tree = load_params(params) if isinstance(params, (str, Path)) else params
     out = {}
     for key, leaf in flatten_params(tree).items():
-        if key.startswith(DEFERRED_PREFIXES):
-            continue
         arr = _to_torch_layout(key, np.asarray(leaf, dtype=np.float32))
         out[key] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+def params_to_jax(model: torch.nn.Module) -> Params:
+    """The model's parameters and BN statistics as a JAX param tree of fp32
+    numpy leaves, in the JAX package's layouts."""
+    flat = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().float().cpu().numpy()
+        flat[key] = np.ascontiguousarray(_to_jax_layout(key, arr))
+    return unflatten_params(flat)
+
+
+def save_model(path, model: torch.nn.Module) -> None:
+    """Write the model as an ``.npz`` that the JAX package's ``load_params``
+    (and :func:`load_into`) reads."""
+    save_params(path, params_to_jax(model))
 
 
 def load_into(model: torch.nn.Module, params) -> None:
@@ -109,6 +141,8 @@ def load_into(model: torch.nn.Module, params) -> None:
     parameter or buffer of the same shape, and every one must be filled."""
     state = params_from_jax(params)
     own = model.state_dict()
+    if not any(k.startswith(REFINE_PREFIX) for k in own):
+        state = {k: v for k, v in state.items() if not k.startswith(REFINE_PREFIX)}
     unplaced = sorted(set(state) - set(own))
     if unplaced:
         raise KeyError(f"{len(unplaced)} leaves have no place in the model: {unplaced[:5]}")

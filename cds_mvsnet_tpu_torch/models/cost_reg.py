@@ -1,12 +1,15 @@
-"""3-D cost-volume regularisation UNet (eval).
+"""3-D cost-volume regularisation UNet.
 
 Counterpart of ``cds_mvsnet_tpu/models/cost_reg.py::cost_reg_net``: three
 stride-2 downsamples, three transposed-conv upsamples with skip sums, and a
-bias-free 1-channel prob conv. conv0 runs with its eval BN folded into the
-weights (``fold_bn_into_conv3d``), through K2's wrapper or its plain version;
-conv1 ... conv11 and the skip sums run on ``F.conv3d``/``F.conv_transpose3d``
-(the JAX package left them to XLA). The prob conv and the softmax tail are
-K3's (``models/stage_net.py``).
+bias-free 1-channel prob conv. At eval, conv0 runs with its BN folded into
+the weights (``fold_bn_into_conv3d``), through K2's wrapper or its plain
+version; conv1 ... conv11 and the skip sums run on
+``F.conv3d``/``F.conv_transpose3d`` (the JAX package left them to XLA), and
+the prob conv and the softmax tail are K3's (``models/stage_net.py``).
+Training (:meth:`CostRegNet.train_logits`) trains every BN, conv0's too, on
+batch statistics, so K2, which folds eval BN, stays eval-only; the prob conv
+is a plain ``F.conv3d``, as in the JAX train step.
 
 The UNet runs channels-last (``torch.channels_last_3d``): in NCDHW bf16,
 cuDNN runs conv11's 16 -> 8 transposed conv3d with a slow direct kernel on
@@ -20,7 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels import fold_bn_into_conv3d
-from .layers import ConvBnReLU3d, DeconvBnReLU3d
+from .layers import ConvBnReLU3d, DeconvBnReLU3d, conv3d
 
 __all__ = ["CostRegNet"]
 
@@ -60,3 +63,15 @@ class CostRegNet(nn.Module):
         y = conv2 + self.conv9(y)
         y = x + self.conv11(y)
         return y[0].contiguous()
+
+    def train_logits(self, vol, stats):
+        """Train form: ``vol (B, C, D, h, w)`` -> prob-conv logits
+        ``(B, D, h, w)`` in vol's dtype; every BN records into ``stats``."""
+        x = self.conv0(vol.to(memory_format=torch.channels_last_3d), stats)
+        conv2 = self.conv2(self.conv1(x, stats), stats)
+        conv4 = self.conv4(self.conv3(conv2, stats), stats)
+        y = self.conv6(self.conv5(conv4, stats), stats)
+        y = conv4 + self.conv7(y, stats)
+        y = conv2 + self.conv9(y, stats)
+        y = x + self.conv11(y, stats)
+        return conv3d(y, self.prob.weight)[:, 0]

@@ -1,11 +1,13 @@
-"""Curvature-guided dynamic-scale convolution (eval).
+"""Curvature-guided dynamic-scale convolution.
 
 Counterpart of ``cds_mvsnet_tpu/models/dynamic_conv.py``. Per candidate kernel
 size k, a conv and a 3-channel curvature-coefficient conv share the input and
 run as one conv over concatenated weights; the directional curvature along
 the epipolar direction ``(u, v)`` is ``coeffs · (u², 2uv, v²)``, and a 1x1
-MLP with eval BN and a temperature softmax (fp32) mixes the branches per
-pixel. All branches can run as one launch of K4 (``ops/kernels/dynconv.py``).
+MLP with BN and a temperature softmax (fp32) mixes the branches per pixel.
+At eval all branches can run as one launch of K4 (``ops/kernels/dynconv.py``);
+training runs one ``F.conv2d`` per branch, as the JAX package trains through
+its plain form (K4 has no backward).
 """
 
 from __future__ import annotations
@@ -48,12 +50,14 @@ class DynamicConv(nn.Module):
             nn.Conv2d(hidden_dim, nk, 1, bias=False),
         )
 
-    def forward(self, x, epipole, temperature: float, branches=None):
+    def forward(self, x, epipole, temperature: float, branches=None, stats=None, groups: int = 1,
+                order=None):
         """``x (N,I,H,W)``, ``epipole (N,2)`` -> ``(out (N,O,H,W), norm_curv (N,H,W))``.
 
         ``branches``: None runs one conv per branch; else a function of
         ``(x, weights)`` that runs them all at once (K4's wrapper or its plain
-        version).
+        version). ``stats``: train the attention BN on batch statistics, per
+        group of ``N / groups`` images (``layers.BatchNorm``).
         """
         N, _, H, W = x.shape
         quad = epipolar_direction_quadratic(epipole, H, W).to(x.dtype)
@@ -74,7 +78,7 @@ class DynamicConv(nn.Module):
         curvs = torch.cat(curvs, 1)  # (N, K, H, W)
         att = self.att_weights
         w = conv2d(curvs, att[0].weight)
-        w = torch.relu(att[1](w))
+        w = torch.relu(att[1](w, stats, groups, order))
         w = conv2d(w, att[3].weight)
         # temperature softmax in fp32: at T=0.01 the logits scale by 100
         w = torch.softmax(w.float() / temperature, dim=1).to(x.dtype)

@@ -1,4 +1,4 @@
-"""Dynamic-scale FPN feature extractor (eval).
+"""Dynamic-scale FPN feature extractor.
 
 Counterpart of ``cds_mvsnet_tpu/models/feature_net.py``: six dynamic convs over
 three scales, strided plain convs for downsampling, 1x1 lateral merges and a
@@ -54,8 +54,8 @@ class DynBlock(nn.Module):
         super().__init__()
         self.conv = DynamicConv(cin, cout, DYN_KERNELS[name], bias=False)
 
-    def forward(self, x, epipole, temperature, branches=None):
-        y, nc = self.conv(x, epipole, temperature, branches)
+    def forward(self, x, epipole, temperature, branches=None, **bn):
+        y, nc = self.conv(x, epipole, temperature, branches, **bn)
         return leaky_relu(instance_norm(y)), nc
 
 
@@ -77,34 +77,38 @@ class FeatureNet(nn.Module):
         self.inner2 = PlainBlock(3 * b, b, 1)
         self.out3 = DynamicConv(b, b, DYN_KERNELS["out3"], bias=True)
 
-    def forward(self, x, epipole, temperature: float, conv01_branches=None):
+    def forward(self, x, epipole, temperature: float, conv01_branches=None, stats=None,
+                bn_groups: int = 1, bn_order=None):
         """``x (N,3,H,W)``, ``epipole (N,2)`` -> ``{stage: (feat, nc_sum, |nc|)}``.
 
         ``conv01_branches`` runs conv01's branches in one call (K4's wrapper
-        or its plain version); None runs one conv per branch.
+        or its plain version); None runs one conv per branch. ``stats``
+        trains every attention BN, with statistics per group of
+        ``N / bn_groups`` images (``layers.BatchNorm``).
         """
-        conv00, nc00 = self.conv00(x, epipole, temperature)
-        conv01, nc01 = self.conv01(conv00, epipole, temperature, conv01_branches)
+        bn = {"stats": stats, "groups": bn_groups, "order": bn_order}
+        conv00, nc00 = self.conv00(x, epipole, temperature, **bn)
+        conv01, nc01 = self.conv01(conv00, epipole, temperature, conv01_branches, **bn)
         epi0 = epipole / 2
-        conv10, nc10 = self.conv10(self.downsample1(conv01), epi0, temperature)
-        conv11, nc11 = self.conv11(conv10, epi0, temperature)
+        conv10, nc10 = self.conv10(self.downsample1(conv01), epi0, temperature, **bn)
+        conv11, nc11 = self.conv11(conv10, epi0, temperature, **bn)
         epi1 = epipole / 4
-        conv20, nc20 = self.conv20(self.downsample2(conv11), epi1, temperature)
-        conv21, nc21 = self.conv21(conv20, epi1, temperature)
+        conv20, nc20 = self.conv20(self.downsample2(conv11), epi1, temperature, **bn)
+        conv21, nc21 = self.conv21(conv20, epi1, temperature, **bn)
 
         outputs = {}
         intra = conv21
-        out, nc22 = self.out1(intra, epi1, temperature)
+        out, nc22 = self.out1(intra, epi1, temperature, **bn)
         out = torch.tanh(instance_norm(out))
         outputs["stage1"] = (out, (nc20**2 + nc21**2 + nc22**2) / 3, nc22.abs())
 
         intra = self.inner1(torch.cat([upsample2x_nearest(intra), conv11], 1))
-        out, nc12 = self.out2(intra, epi0, temperature)
+        out, nc12 = self.out2(intra, epi0, temperature, **bn)
         out = torch.tanh(instance_norm(out))
         outputs["stage2"] = (out, (nc10**2 + nc11**2 + nc12**2) / 3, nc12.abs())
 
         intra = self.inner2(torch.cat([upsample2x_nearest(out), conv01], 1))
-        out, nc02 = self.out3(intra, epipole, temperature)
+        out, nc02 = self.out3(intra, epipole, temperature, **bn)
         out = torch.tanh(instance_norm(out))
         outputs["stage3"] = (out, (nc00**2 + nc01**2 + nc02**2) / 3, nc02.abs())
         return outputs

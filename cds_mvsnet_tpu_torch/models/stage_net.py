@@ -1,14 +1,23 @@
-"""One cascade stage, eval: plane-sweep cost volume with learned visibility,
+"""One cascade stage: plane-sweep cost volume with learned visibility,
 regularisation, and the soft-argmin tail.
 
 Counterpart of the XLA form of ``cds_mvsnet_tpu/models/stage_net.py::stage_net``
-(:171-296). Per source view, K1 (``ops/kernels/warp.py``) returns
-``in_prod = ref ⊙ warped`` and the entropy of the similarity softmax; the vis
-head maps (entropy, ref |curvature|) to a weight in (0, 1), and
-``volume_sum += in_prod · vis``. Then ``volume_mean = volume_sum /
-(vis_sum + 1e-6)`` goes through the cost-regularisation UNet (K2 runs its
-conv0) and K3 (``ops/kernels/regress.py``) turns the UNet exit into depth and
-photometric confidence.
+(:171-296). Per source view, the warp returns ``in_prod = ref ⊙ warped`` and
+the similarity ``sim = Σ_C in_prod`` (or, at eval, K1 returns the entropy of
+``softmax_D(sim)`` directly); the vis head maps (entropy, ref |curvature|) to
+a weight in (0, 1), and ``volume_sum += in_prod · vis``. Then ``volume_mean
+= volume_sum / (vis_sum + 1e-6)`` goes through the cost-regularisation UNet
+and the softmax/regression tail.
+
+- :func:`stage_net`, eval: per batch element; K1 warps, K2 runs the UNet's
+  conv0 and K3 (``ops/kernels/regress.py``) the exit.
+- :func:`stage_net_train`, train (``train=True`` there): the warp is K5
+  (``ops/kernels/warp_vjp.py``) or its plain version, launched per batch
+  element and source view, once over the hypotheses and once at the GT depth
+  (the same function at D=1, :267-270). Everything else sees the whole batch,
+  so each BN's batch statistics and its one EMA step are those of the JAX
+  package. The stage also returns ``feat_distance = Σ_v sim·vis / (vis_sum
+  + 1e-6)``, with the GT similarity as its last plane.
 """
 
 from __future__ import annotations
@@ -20,10 +29,11 @@ from torch import nn
 
 from ..ops import kernels as K
 from ..ops.geometry import relative_warp_transform
+from ..ops.sampling import confidence_regression, depth_regression, softmax_entropy
 from .cost_reg import CostRegNet
 from .layers import ConvBnReLU2d, conv2d
 
-__all__ = ["VisHead", "StageNet", "Ops", "stage_net", "KERNEL_OPS", "PLAIN_OPS"]
+__all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "KERNEL_OPS", "PLAIN_OPS"]
 
 
 @dataclass(frozen=True)
@@ -52,9 +62,9 @@ class VisHead(nn.Sequential):
             nn.Conv2d(16, 1, 1, bias=True),
         )
 
-    def forward(self, x):
+    def forward(self, x, stats=None):
         for i in range(3):
-            x = self[i](x)
+            x = self[i](x, stats)
         return torch.sigmoid(conv2d(x, self[3].weight, self[3].bias))
 
 
@@ -104,3 +114,57 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
         "photometric_confidence": torch.stack(confs),
         "norm_curv": nc_sum / (V - 1),
     }
+
+
+def stage_net_train(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, warp, stats,
+                    gt_depth=None):
+    """Run one stage in training.
+
+    Args:
+      features, cams, depth_values: as :func:`stage_net`; the features carry
+        autograd history.
+      warp: ``(src (H,W,C), ref (C,h,w), depth, rt) -> (in_prod, sim)``:
+        ``ops.kernels.fused_warp_train`` (K5) or ``warp_sim_plain``.
+      stats: the ``layers.StatsCollector`` every BN records into.
+      gt_depth: ``(B, h, w)`` ground truth, for the GT similarity plane.
+    Returns:
+      ``{"depth", "photometric_confidence", "norm_curv"}``, each ``(B, h, w)``,
+      and ``feat_distance (B, D(+1), h, w)``.
+    """
+    B, V = cams.shape[:2]
+    volume_sum = vis_sum = fd_sum = gt_sum = 0.0
+    for v in range(1, V):
+        ref_feat, _, ref_nc = features[v - 1]["ref"]
+        src_feat = features[v - 1]["src"][0]
+        rot, trans = relative_warp_transform(cams[:, 0], cams[:, v])
+        rts = torch.cat([rot.reshape(B, 9), trans.reshape(B, 3)], 1).float()
+        prods, sims, gt_sims = [], [], []
+        for b in range(B):
+            src_b = src_feat[b].permute(1, 2, 0).contiguous()
+            ref_b = ref_feat[b].contiguous()
+            rt = rts[b].contiguous()
+            in_prod, sim = warp(src_b, ref_b, depth_values[b].float().contiguous(), rt)
+            prods.append(in_prod)
+            sims.append(sim)
+            if gt_depth is not None:
+                gt_sims.append(warp(src_b, ref_b, gt_depth[b][None].float().contiguous(), rt)[1])
+        sim = torch.stack(sims)  # (B, D, h, w) fp32
+        entropy = softmax_entropy(sim, dim=1)[:, 0]
+        vis = vis_head(torch.stack([entropy.to(ref_nc.dtype), ref_nc], 1), stats)[:, 0]  # (B, h, w)
+        volume_sum = volume_sum + torch.stack(prods) * vis[:, None, None]
+        vis_sum = vis_sum + vis
+        fd_sum = fd_sum + sim * vis[:, None]
+        if gt_depth is not None:
+            gt_sum = gt_sum + torch.stack(gt_sims) * vis[:, None]
+    denom = vis_sum[:, None] + 1e-6
+    cost = cost_reg.train_logits(volume_sum / denom[:, None], stats)  # (B, D, h, w)
+    prob = torch.softmax(cost.float(), dim=1)
+    depth = depth_regression(prob, depth_values.float())
+    with torch.no_grad():
+        conf = confidence_regression(prob)
+    feat_distance = fd_sum / denom
+    if gt_depth is not None:
+        feat_distance = torch.cat([feat_distance, gt_sum / denom], 1)
+    nc_sum = sum((f["ref"][1] + f["src"][1]) / 2 for f in features)
+    return {"depth": depth, "photometric_confidence": conf, "norm_curv": nc_sum / (V - 1),
+            "feat_distance": feat_distance}

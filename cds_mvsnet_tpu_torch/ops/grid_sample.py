@@ -3,6 +3,10 @@
 Counterpart of ``cds_mvsnet_tpu/ops/grid_sample.py::grid_sample_pixel``:
 ``F.grid_sample(mode="bilinear", padding_mode="zeros", align_corners=True)``
 written directly in pixel coordinates, with one in-bounds mask per corner.
+A corner out of bounds gets the weight 0 through ``torch.where``, not a
+multiply by the mask: a far-off projection can give non-finite coordinates
+(``tx = inf - inf``), and ``NaN * 0`` would carry NaN into the result and
+into autograd's backward.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ def grid_sample_pixel(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
         inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
         idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
         vals = torch.gather(src_flat, 1, idx[:, :, None].expand(-1, -1, C))
-        return vals * (w * inb.to(src.dtype))[:, :, None]
+        return vals * torch.where(inb, w, torch.zeros_like(w))[:, :, None]
 
     out = (
         corner(x0i, y0i, (1 - tx) * (1 - ty))

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the eval cascade, one module each.
+"""Hand-written Hopper kernels of the cascade, one module each.
 
 Every module holds the wrapper (a CUDA tensor launches the kernel or raises;
 a CPU tensor takes the plain version), the plain PyTorch version of the same
@@ -10,11 +10,24 @@ from .conv3d import conv3d_bn_relu, conv3d_bn_relu_plain, fold_bn_into_conv3d
 from .dynconv import dynconv_branches, dynconv_branches_plain
 from .regress import exit_softargmin, exit_softargmin_plain
 from .warp import warp_entropy, warp_entropy_plain
+from .warp_vjp import (
+    FusedWarpTrain,
+    fused_warp_train,
+    warp_sim,
+    warp_sim_backward,
+    warp_sim_backward_plain,
+    warp_sim_plain,
+)
 
+# the eval cascade's kernels, and the train step's
 KERNELS = (warp_entropy, conv3d_bn_relu, exit_softargmin, dynconv_branches)
+TRAIN_KERNELS = (warp_sim, warp_sim_backward)
 
 __all__ = [
     "KERNELS",
+    "TRAIN_KERNELS",
+    "FusedWarpTrain",
+    "fused_warp_train",
     "conv3d_bn_relu",
     "conv3d_bn_relu_plain",
     "dynconv_branches",
@@ -24,4 +37,8 @@ __all__ = [
     "fold_bn_into_conv3d",
     "warp_entropy",
     "warp_entropy_plain",
+    "warp_sim",
+    "warp_sim_backward",
+    "warp_sim_backward_plain",
+    "warp_sim_plain",
 ]

@@ -10,7 +10,10 @@ view from the 12 homography scalars ``rt`` and the plane depth
 features bilinearly with zeros padding, writes ``in_prod = ref ⊙ warped``
 ``(C, D, h, w)`` in bf16, and folds ``sim = Σ_C ref·warped`` into an online
 ``(m, s, u)`` so that the entropy of ``softmax_D(sim)`` is
-``m + log s − u/s`` without a ``(D, h, w)`` buffer.
+``m + log s − u/s`` without a ``(D, h, w)`` buffer. K5's forward
+(``ops/kernels/warp_vjp.py``) is the same kernel body with ``sim`` stored
+instead (``warp_kernel<C, kSim>``); the projection and the gather live in
+``csrc/warp.cuh``.
 
 Bound on the H100: memory. The ``in_prod`` write dominates: about
 199 / 304 / 195 MB per launch at stages 1/2/3 of the 1152x864 main path
@@ -22,7 +25,13 @@ loads that the L1/L2 caches serve (the source map is 4-16 MB); the
 selection matmuls and tiling are Mosaic mechanics and are not carried over.
 Numerics: bilinear weights are fp32 (the TPU kernel rounds the x-weights to
 bf16), the warped value is rounded to bf16 before the product and the
-similarity, as on the TPU.
+similarity, as on the TPU. The projection and the weights round each
+operation as the plain version does (no FMA contraction), so both pick the
+same corners and weights; the gather fuses its multiply-adds, so a warped
+value, and with it ``in_prod``, may sit one bf16 ulp from the plain
+version's (about 2e-5 of the values on the card; K5's forward gathers op
+by op instead, see ``warp_vjp.py``); ``sim`` sums its C products in another
+order.
 """
 
 from __future__ import annotations
@@ -33,16 +42,16 @@ from ..grid_sample import grid_sample_pixel
 from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 
-__all__ = ["warp_entropy", "warp_entropy_plain"]
+__all__ = ["warp_entropy", "warp_entropy_plain", "warp_sim_plain"]
 
 CHANNELS = (8, 16, 32)
-# elements of one chunk of planes in the plain version, to bound its temporaries
+# elements of one chunk of planes in the plain versions (K1, K5), to bound their temporaries
 PLAIN_CHUNK_ELEMS = 1 << 25
 
 
-def _project(rt: torch.Tensor, depth: torch.Tensor, h: int, w: int):
+def project(rt: torch.Tensor, depth: torch.Tensor, h: int, w: int):
     """Source-pixel coordinates ``(px, py)``, each ``(D, h, w)`` fp32, of
-    every (plane, ref pixel), as the kernel computes them."""
+    every (plane, ref pixel), as the kernels compute them."""
     r = rt.float()
     ys, xs = torch.meshgrid(
         torch.arange(h, dtype=torch.float32, device=rt.device),
@@ -59,21 +68,45 @@ def _project(rt: torch.Tensor, depth: torch.Tensor, h: int, w: int):
     return (L0 * dep + r[9]) / z, (L1 * dep + r[10]) / z
 
 
-def warp_entropy_plain(src, ref, depth, rt):
-    """Plain PyTorch version of :func:`warp_entropy`, any float dtype."""
+def _chunk(D: int, h: int, w: int, C: int) -> int:
+    return max(1, min(D, PLAIN_CHUNK_ELEMS // (h * w * C)))
+
+
+def check_inputs(name: str, src, ref, depth, rt) -> None:
+    """The argument contract of K1 and of K5's forward and backward."""
+    require(src.ndim == 3 and src.shape[2] in CHANNELS, f"{name}: src {tuple(src.shape)}")
+    C = src.shape[2]
+    require(ref.ndim == 3 and ref.shape[0] == C, f"{name}: ref {tuple(ref.shape)} for C={C}")
+    _, h, w = ref.shape
+    require(depth.ndim in (1, 3), f"{name}: depth {tuple(depth.shape)}")
+    require(depth.ndim == 1 or depth.shape[1:] == (h, w), f"{name}: depth {tuple(depth.shape)}")
+    require(tuple(rt.shape) == (12,), f"{name}: rt {tuple(rt.shape)}")
+    require(src.dtype == ref.dtype == torch.bfloat16, f"{name}: src and ref must be bf16")
+    require(depth.dtype == rt.dtype == torch.float32, f"{name}: depth and rt must be fp32")
+    require(all(t.is_contiguous() for t in (src, ref, depth, rt)), f"{name}: inputs must be contiguous")
+
+
+def warp_sim_plain(src, ref, depth, rt):
+    """Plain PyTorch version of K5's forward (``warp_vjp.warp_sim``), any
+    float dtype, and differentiable in ``src`` and ``ref`` through autograd
+    of the gather."""
     H, W, C = src.shape
     _, h, w = ref.shape
     D = depth.shape[0]
     ref_t = ref.permute(1, 2, 0)  # (h, w, C)
-    step = max(1, min(D, PLAIN_CHUNK_ELEMS // (h * w * C)))
+    step = _chunk(D, h, w, C)
     prods, sims = [], []
     for d0 in range(0, D, step):
-        px, py = _project(rt, depth[d0 : d0 + step], h, w)
+        px, py = project(rt, depth[d0 : d0 + step], h, w)
         warped = grid_sample_pixel(src.float()[None], px[None], py[None])[0].to(src.dtype)
         prods.append(ref_t * warped)  # (d, h, w, C)
         sims.append((warped.float() * ref_t.float()).sum(-1))
-    in_prod = torch.cat(prods).permute(3, 0, 1, 2).contiguous()
-    sim = torch.cat(sims)
+    return torch.cat(prods).permute(3, 0, 1, 2).contiguous(), torch.cat(sims)
+
+
+def warp_entropy_plain(src, ref, depth, rt):
+    """Plain PyTorch version of :func:`warp_entropy`, any float dtype."""
+    in_prod, sim = warp_sim_plain(src, ref, depth, rt)
     entropy = -(torch.softmax(sim, 0) * torch.log_softmax(sim, 0)).sum(0)
     return in_prod, entropy
 
@@ -90,20 +123,13 @@ def warp_entropy(src: torch.Tensor, ref: torch.Tensor, depth: torch.Tensor, rt: 
     Returns:
       ``(in_prod (C, D, h, w) bf16, entropy (h, w) fp32)``.
     """
-    require(src.ndim == 3 and src.shape[2] in CHANNELS, f"warp_entropy: src {tuple(src.shape)}")
-    H, W, C = src.shape
-    require(ref.ndim == 3 and ref.shape[0] == C, f"warp_entropy: ref {tuple(ref.shape)} for C={C}")
-    _, h, w = ref.shape
-    require(depth.ndim in (1, 3), f"warp_entropy: depth {tuple(depth.shape)}")
-    D = depth.shape[0]
-    require(depth.ndim == 1 or depth.shape[1:] == (h, w), f"warp_entropy: depth {tuple(depth.shape)}")
-    require(tuple(rt.shape) == (12,), f"warp_entropy: rt {tuple(rt.shape)}")
-    require(src.dtype == ref.dtype == torch.bfloat16, "warp_entropy: src and ref must be bf16")
-    require(depth.dtype == rt.dtype == torch.float32, "warp_entropy: depth and rt must be fp32")
-    require(all(t.is_contiguous() for t in (src, ref, depth, rt)), "warp_entropy: inputs must be contiguous")
+    check_inputs("warp_entropy", src, ref, depth, rt)
     if not on_card("warp_entropy", src, ref, depth, rt):
         return warp_entropy_plain(src, ref, depth, rt)
     require(src.data_ptr() % 16 == 0, "warp_entropy: src must be 16-byte aligned")
+    H, W, C = src.shape
+    _, h, w = ref.shape
+    D = depth.shape[0]
     in_prod = torch.empty((C, D, h, w), dtype=torch.bfloat16, device=src.device)
     entropy = torch.empty((h, w), dtype=torch.float32, device=src.device)
     lib, fn = entry("warp", "warp_entropy_launch", [P, P, P, I, P, P, P, I, I, I, I, I, I, P])

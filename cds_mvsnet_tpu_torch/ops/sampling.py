@@ -75,6 +75,7 @@ def confidence_regression(prob: torch.Tensor, n: int = 4) -> torch.Tensor:
 
 
 def softmax_entropy(sim: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    """Entropy of ``softmax(sim)`` along ``dim``, keepdim."""
-    p = torch.softmax(sim, dim=dim)
+    """Entropy of ``softmax(sim)`` along ``dim``, keepdim; no gradient flows
+    back into ``sim``, as in the JAX package."""
+    p = torch.softmax(sim.detach(), dim=dim)
     return -torch.sum(p * torch.log(p), dim=dim, keepdim=True)

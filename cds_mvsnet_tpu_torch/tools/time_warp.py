@@ -1,0 +1,172 @@
+"""Time K1 and K5's forward as built from several kernel source directories,
+in one process on one card, against the plain version.
+
+    python -m cds_mvsnet_tpu_torch.tools.time_warp DIR [DIR ...] [--rounds N]
+
+Each ``DIR`` holds a ``warp.cu`` (and the headers it includes), such as the
+``cds_mvsnet_tpu_torch/csrc`` of this checkout and of a parent commit
+unpacked beside it. Every ``warp.cu`` is built with the flags of
+``ops/kernels/_build.py`` (all ``nvcc`` runs at once) and its
+``warp_entropy_launch`` (K1) is timed at the three stage shapes of the eval
+main path (1152x864, V=5, ndepths 48/32/8), and its ``warp_sim_launch`` (K5's
+forward), where the source has one, at the three of the train point
+(512x640 with refinement, per batch element), on inputs shaped and drawn
+as in ``chip_smoke.py``'s kernels phase. Rounds alternate the order of the
+sources (A B C, C B A, ...); a time is the median over rounds of the mean of
+``--reps`` launches between CUDA events. One JSON line per source, kernel
+and stage, with ``in_prod``'s share of values equal to the plain version's
+and its largest difference; the card's ``nvidia-smi`` name and power limit
+come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..models import strict_fp32, to_tensors
+from ..ops import kernels as K
+from ..ops.geometry import relative_warp_transform
+from ..ops.kernels import _build
+from ..utils.synthetic import synthetic_batch, textured_plane_batch
+
+P, I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = [P, P, P, I, P, P, P, I, I, I, I, I, I, P]
+NDEPTHS = (48, 32, 8)
+D_FULL = 192
+
+
+def build(dirs: list[Path], out: Path) -> list[ctypes.CDLL]:
+    procs = []
+    for i, d in enumerate(dirs):
+        lib = out / f"warp{i}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(d / "warp.cu")]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib, d))
+    libs = []
+    for proc, lib, d in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {d}:\n{log}")
+        libs.append(ctypes.CDLL(str(lib)))
+    return libs
+
+
+def cases(dev) -> list[tuple]:
+    """``(kernel, stage, src, ref, hyp, rt)`` at the shapes of chip_smoke.py's
+    kernels phase: K1 at the eval main path's, K5's forward at the train
+    point's."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def uniform(shape, lo=-1.0, hi=1.0, dtype=torch.bfloat16):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo).to(dtype).contiguous()
+
+    def rt_of(cams):
+        rot, trans = relative_warp_transform(cams[:1, 0], cams[:1, 1])
+        return torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+
+    def hyp_of(s, D, h, w, ratio, interval):
+        if s == 1:
+            return torch.linspace(425.0, 905.0, D, device=dev).contiguous()
+        centre = uniform((h, w), 560.0, 640.0, torch.float32)
+        steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
+        return (centre[None] + steps[:, None, None] * ratio * interval).contiguous()
+
+    interval = 480.0 / (D_FULL - 1)
+    out = []
+    H, W = 864, 1152
+    serve = to_tensors(textured_plane_batch(V=5, H=H, W=W, D=D_FULL, seed=0), dev)
+    for s, (C, D, h, w) in enumerate([(32, 48, H // 4, W // 4), (16, 32, H // 2, W // 2), (8, 8, H, W)], start=1):
+        rt = rt_of(serve["proj_matrices"][f"stage{s}"])
+        hyp = hyp_of(s, D, h, w, (0.0, 2.0, 1.0)[s - 1], interval)
+        out.append(("warp_entropy", s, uniform((h, w, C)), uniform((C, h, w)), hyp, rt))
+    train = to_tensors(synthetic_batch(B=2, V=5, H=512, W=640, D=D_FULL, refine=True, with_gt=True, seed=0), dev)
+    for s, (C, D) in enumerate(zip((32, 16, 8), NDEPTHS), start=1):
+        scale = 2 ** (3 - s)
+        h, w = 256 // scale, 320 // scale
+        rt = rt_of(train["proj_matrices"][f"stage{s}"])
+        hyp = hyp_of(s, D, h, w, 4.0 / scale, interval)
+        out.append(("warp_sim", s, uniform((h, w, C)), uniform((C, h, w)), hyp, rt))
+    return out
+
+
+def launcher(lib, kernel, src, ref, hyp, rt):
+    """A closure launching ``kernel`` of ``lib`` on the case, and its
+    ``in_prod``; None where the source has no such entry point."""
+    fn = getattr(lib, f"{kernel}_launch", None)
+    if fn is None:
+        return None
+    fn.argtypes, fn.restype = ARGTYPES, ctypes.c_int
+    H, W, C = src.shape
+    _, h, w = ref.shape
+    D = hyp.shape[0]
+    in_prod = torch.empty((C, D, h, w), dtype=torch.bfloat16, device=src.device)
+    out = torch.empty((D, h, w) if kernel == "warp_sim" else (h, w), dtype=torch.float32, device=src.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (src, ref, hyp)] + [int(hyp.ndim == 3)]
+    args += [ctypes.c_void_p(t.data_ptr()) for t in (rt, in_prod, out)] + [C, H, W, D, h, w, stream]
+
+    def run():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{kernel}: CUDA error {err}")
+
+    return run, in_prod
+
+
+def mean_ms(run, reps: int) -> float:
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("dirs", nargs="+", type=Path)
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_warp: no CUDA device", file=sys.stderr)
+        return 2
+    strict_fp32()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "sources": [str(d) for d in args.dirs]}), flush=True)
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(args.dirs, Path(tmp))
+        for kernel, stage, src, ref, hyp, rt in cases(dev):
+            want = (K.warp_entropy_plain if kernel == "warp_entropy" else K.warp_sim_plain)(src, ref, hyp, rt)[0]
+            runs = [launcher(lib, kernel, src, ref, hyp, rt) for lib in libs]
+            times = [[] for _ in libs]
+            order = [i for i, r in enumerate(runs) if r is not None]
+            for rnd in range(args.rounds):
+                for i in order if rnd % 2 == 0 else order[::-1]:
+                    times[i].append(mean_ms(runs[i][0], args.reps))
+            for i in order:
+                d = (runs[i][1].float() - want.float()).abs()
+                print(json.dumps({
+                    "source": str(args.dirs[i]), "kernel": kernel, "stage": stage,
+                    "shape": list(runs[i][1].shape), "ms": statistics.median(times[i]), "ms_rounds": times[i],
+                    "in_prod_exact_frac": float((d == 0).float().mean()), "in_prod_max_abs_diff": float(d.max()),
+                }), flush=True)
+            del runs, want
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

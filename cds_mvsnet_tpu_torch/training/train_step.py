@@ -1,0 +1,89 @@
+"""One training step: forward, loss, backward, SGD update, BN statistics.
+
+Counterpart of ``cds_mvsnet_tpu/training/train_step.py::make_train_step``.
+
+- SGD with weight decay (``torch.optim.SGD``, the semantics of the JAX
+  package's ``add_decayed_weights`` + ``trace`` chain) on the trainable
+  leaves only: the BN running statistics are buffers, not parameters. A
+  trainable leaf the loss does not reach still decays, as it does under the
+  JAX package's masked optimizer, so its gradient is taken as zero.
+- ``lr = lr·gamma^((epoch − 1) // lr_step)`` for the 1-based epoch.
+- The BN running statistics move after the optimizer step, once
+  (``StatsCollector.apply``), as ``merge_stat_updates`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import TrainConfig
+from ..models.cds_mvsnet import CDSMVSNet
+from ..models.layers import StatsCollector
+from .loss import final_loss
+
+__all__ = ["TrainStep", "learning_rate", "temperature_schedule"]
+
+
+def learning_rate(cfg: TrainConfig, epoch: int) -> float:
+    """StepLR for the 1-based ``epoch``."""
+    return cfg.lr * cfg.lr_gamma ** ((epoch - 1) // cfg.lr_step)
+
+
+def temperature_schedule(epoch: int) -> float:
+    """``10^(-(epoch-1)/2)`` for epochs 1-4, then 0.01 (1-based)."""
+    if epoch <= 4:
+        return float(10.0 ** (-(epoch - 1) / 2.0))
+    return 0.01
+
+
+class TrainStep:
+    """``step(batch, temperature, epoch) -> {"loss", "depth_loss"}`` on
+    ``model``, in place.
+
+    ``batch`` holds tensors on the model's device: ``imgs (B,V,H,W,3)``,
+    ``proj_matrices[stage] (B,V,2,4,4)``, ``depth_values (B,D)``, and the GT
+    pyramids ``depth[stage]``, ``mask[stage]`` ``(B,h,w)``. In bf16 the warp
+    runs K5 (``kernels=True``) or its plain version; fp32 always runs the
+    plain version.
+    """
+
+    def __init__(self, model: CDSMVSNet, cfg: TrainConfig, kernels: bool = True):
+        self.model = model
+        self.cfg = cfg
+        self.kernels = kernels
+        self.compute_dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[cfg.compute_dtype]
+        self.reset_optimizer()
+
+    def reset_optimizer(self) -> None:
+        """A fresh optimizer (momentum buffers empty) over the model's
+        parameters."""
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.optimizer = torch.optim.SGD(self.params, lr=self.cfg.lr, momentum=self.cfg.momentum,
+                                         weight_decay=self.cfg.weight_decay)
+
+    def gradients(self, batch: dict, temperature: float) -> tuple[dict, StatsCollector]:
+        """Forward, loss and backward, without the update: leaves each
+        trainable leaf's gradient in ``.grad`` and returns ``({"loss",
+        "depth_loss"}, the step's BN statistics)``."""
+        stats = StatsCollector()
+        dv = batch["depth_values"]
+        outputs = self.model.forward_train(
+            batch["imgs"], batch["proj_matrices"], dv, batch["depth"], stats, temperature=temperature,
+            compute_dtype=self.compute_dtype, kernels=self.kernels, remat_features=self.cfg.remat_features,
+        )
+        loss, depth_loss = final_loss(outputs, batch["depth"], batch["mask"], self.cfg.dlossw, dv[:, 1] - dv[:, 0])
+        for p in self.params:
+            p.grad = None
+        loss.backward()
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return {"loss": loss.detach(), "depth_loss": depth_loss.detach()}, stats
+
+    def __call__(self, batch: dict, temperature: float, epoch: int = 1) -> dict:
+        metrics, stats = self.gradients(batch, temperature)
+        for group in self.optimizer.param_groups:
+            group["lr"] = learning_rate(self.cfg, epoch)
+        self.optimizer.step()
+        stats.apply()
+        return metrics

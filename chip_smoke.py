@@ -13,13 +13,25 @@ Phases, one JSON line each:
    ndepths 48/32/8), with the tolerance stated beside each comparison and the
    kernel's, the plain version's and, where one PyTorch call computes the
    same function, that call's time;
+   K5's forward and backward are checked the same way at the three stage
+   shapes of the train point (per batch element);
 3. serve: the eval cascade with seeded random weights answers 3 requests at
    1152x864; every kernel's launch count must show that the path ran it; its
    stage-3 depth and confidence are compared with the port's plain path on
    the card in bf16 (the gate) and in fp32 (reported);
    one more request runs under ``torch.profiler`` and the device time is
    summed by kernel name;
-4. summary: one ``{"kernels": [...]}`` line, the card line, and last
+4. train: the train step at the JAX package's train bench point (512x640
+   DTU crops, B=2, V=5, D=192, ndepths 48/32/8, refinement, bf16, FeatureNet
+   recomputed in the backward, SGD lr 0.01 and weight decay 0.01,
+   temperature 0.01) takes 1 warm-up and 3 timed steps on one seeded
+   ``synthetic_batch``; the losses must be finite and each K5 kernel must
+   launch B·3·(V−1)·2 = 48 times per step; one step's loss and gradients on
+   the kernel path are held against the plain bf16 path from the same
+   weights (the gate) and the plain fp32 path (reported), and each of that
+   step's K5 calls, forward and backward, against the plain versions on its
+   own inputs (the gate); one more step runs under ``torch.profiler``;
+5. summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Nothing falls back: no GPU
@@ -40,19 +52,29 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 SEED = 0
+# the train point (tools/bench_train.py of the JAX package)
+TRAIN_B, TRAIN_H, TRAIN_W = 2, 512, 640
+TRAIN_STEPS = 3
+TRAIN_TEMPERATURE = 0.01
 
 KERNEL_INFO = {
     "warp_entropy": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1342"),
     "conv3d_bn_relu": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "exit_softargmin": ("cds_mvsnet_tpu_torch/csrc/regress.cu", "cds_mvsnet_tpu/ops/pallas/regress.py:224"),
     "dynconv_branches": ("cds_mvsnet_tpu_torch/csrc/dynconv.cu", "cds_mvsnet_tpu/ops/pallas/s2d_sparse.py:239"),
+    "warp_sim": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp_vjp.py:75"),
+    "warp_sim_backward": ("cds_mvsnet_tpu_torch/csrc/warp_vjp.cu", "cds_mvsnet_tpu/ops/pallas/warp_vjp.py:92"),
 }
+TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # the kernels' symbols as the profiler names them (csrc/*.cu)
-KERNEL_SYMBOLS = ("void warp_entropy_kernel", "conv3d_bn_relu_kernel", "exit_softargmin_kernel",
-                  "void dynconv_kernel")
+KERNEL_SYMBOLS = ("void warp_kernel", "conv3d_bn_relu_kernel", "exit_softargmin_kernel",
+                  "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
 PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
+# launches of one train step: each K5 kernel once per batch element, source
+# view and stage for the sweep, and as often for the GT-depth warp
+PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
 
 
 def emit(obj) -> None:
@@ -110,9 +132,10 @@ def stage_shapes():
     return [(32, NDEPTHS[0], H // 4, W // 4), (16, NDEPTHS[1], H // 2, W // 2), (8, NDEPTHS[2], H, W)]
 
 
-def phase_kernels(torch, batch, dev):
+def phase_kernels(torch, batch, train_batch, dev):
     """Each kernel against its plain version at the main-path shapes, in
-    bf16 as the main path runs them."""
+    bf16 as the main path runs them: K1-K4 at the serve point's, K5 at the
+    train point's."""
     import torch.nn.functional as F
 
     from cds_mvsnet_tpu_torch.ops import kernels as K
@@ -238,6 +261,78 @@ def phase_kernels(torch, batch, dev):
            x.numel() * 2 + sum(w_.numel() * 4 for w_ in ws) + o_k.numel() * 2,
            2 * N * H * W * 11 * 8 * (9 + 25 + 49), PEAK_BF16_FLOPS)
     del x, o_k, o_p, d
+
+    # K5, forward and backward, per batch element at the train point's stage
+    # shapes: source and reference share the stage resolution; stage 1 sweeps
+    # planes, stages 2 and 3 per-pixel windows (ratios 2 and 1)
+    th, tw = TRAIN_H // 2, TRAIN_W // 2  # refinement: the cascade runs at half resolution
+    for s, (C, D) in enumerate(zip((32, 16, 8), NDEPTHS), start=1):
+        scale = 2 ** (3 - s)
+        h, w = th // scale, tw // scale
+        cams = train_batch["proj_matrices"][f"stage{s}"]
+        rot, trans = relative_warp_transform(cams[:1, 0], cams[:1, 1])
+        rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+        if s == 1:
+            hyp = torch.linspace(425.0, 905.0, D, device=dev).contiguous()
+        else:
+            centre = uniform((h, w), 560.0, 640.0, torch.float32)
+            steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
+            hyp = (centre[None] + steps[:, None, None] * (4.0 / scale) * interval).contiguous()
+        src, ref = uniform((h, w, C)), uniform((C, h, w))
+        ip_k, sim_k = K.warp_sim(src, ref, hyp, rt)
+        torch.cuda.synchronize()
+        ip_p, sim_p = K.warp_sim_plain(src, ref, hyp, rt)
+        # K1's tolerance for in_prod; sim sums C products of the same bf16
+        # values, a warped value may sit one bf16 ulp away
+        d_ip = (ip_k.float() - ip_p.float()).abs()
+        d_sim = (sim_k - sim_p).abs()
+        ok = (bool((d_ip <= 2 ** -7 * ip_p.float().abs() + 2 ** -8).all())
+              and bool((d_sim <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all()))
+        io_bytes = src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + ip_k.numel() * 2 + sim_k.numel() * 4
+        record("warp_sim", s, max(float(d_ip.max()), float(d_sim.max())),
+               "in_prod |d| <= 2^-7|plain| + 2^-8; sim |d| <= 2^-7 sum_C|in_prod| + 1e-5", ok,
+               timed(torch, lambda: K.warp_sim(src, ref, hyp, rt), 10),
+               timed(torch, lambda: K.warp_sim_plain(src, ref, hyp, rt), 3),
+               None, io_bytes, D * h * w * (11 * C + 12), PEAK_FP32_FLOPS,
+               {"shape": [C, D, h, w], "in_prod_max_abs_err": float(d_ip.max()),
+                "sim_max_abs_err": float(d_sim.max()), "in_prod_exact_frac": float((d_ip == 0).float().mean())})
+        del ip_k, ip_p, d_ip
+
+        # the backward against autograd of the plain forward (the gate, with
+        # the bf16 roundings autograd adds inside its partial sums) and
+        # against the explicit plain backward (fp32 sums, one rounding)
+        g_ip = uniform((C, D, h, w))
+        g_sim = uniform((D, h, w), dtype=torch.float32)
+        ds_k, dr_k = K.warp_sim_backward(src, ref, hyp, rt, g_ip, g_sim)
+        torch.cuda.synchronize()
+        src_g, ref_g = src.clone().requires_grad_(), ref.clone().requires_grad_()
+        outs = K.warp_sim_plain(src_g, ref_g, hyp, rt)
+        plain_bwd = lambda: torch.autograd.grad(outs, (src_g, ref_g), (g_ip, g_sim), retain_graph=True)
+        ds_p, dr_p = plain_bwd()
+        ds_e, dr_e = K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip, g_sim)
+        # the plain backward on |inputs| sums |terms| behind each element
+        abs_terms = K.warp_sim_backward_plain(src.abs(), ref.abs(), hyp, rt, g_ip.abs(), g_sim.abs())
+        errs, rels, ok = [], [], True
+        for got, want, explicit, s_abs in zip((ds_k, dr_k), (ds_p, dr_p), (ds_e, dr_e), abs_terms):
+            d = (got.float() - want.float()).abs()
+            errs.append(float(d.max()))
+            rels.append(float((got.float() - want.float()).norm() / want.float().norm()))
+            ok &= bool((d <= 2 ** -6 * (want.float().abs() + s_abs.float()) + 1e-6).all()) and rels[-1] <= 1e-2
+            d_e = (got.float() - explicit.float()).abs()
+            ok &= bool((d_e <= 2 ** -7 * (explicit.float().abs() + s_abs.float()) + 1e-6).all())
+        bwd_bytes = (src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + g_ip.numel() * 2 + g_sim.numel() * 4
+                     + ds_k.numel() * 2 + dr_k.numel() * 2)
+        record("warp_sim_backward", s, max(errs),
+               "vs autograd of the plain forward: |d| <= 2^-6(|plain| + sum|terms|) and rel L2 <= 1e-2; "
+               "vs the explicit plain backward: |d| <= 2^-7(|plain| + sum|terms|)", ok,
+               timed(torch, lambda: K.warp_sim_backward(src, ref, hyp, rt, g_ip, g_sim), 10),
+               timed(torch, plain_bwd, 3),
+               None, bwd_bytes, D * h * w * (20 * C + 12), PEAK_FP32_FLOPS,
+               {"shape": [C, D, h, w], "d_src_max_abs_err": errs[0], "d_ref_max_abs_err": errs[1],
+                "d_src_rel_l2": rels[0], "d_ref_rel_l2": rels[1],
+                "explicit_plain_ms": timed(torch, lambda: K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip, g_sim),
+                                           3)})
+        del outs, ds_p, dr_p, g_ip
     torch.cuda.empty_cache()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
@@ -356,19 +451,18 @@ def layer_times(torch, model, request) -> dict:
     return {name: sum(a.elapsed_time(b) for a, b in evs) for name, evs in spans.items()}
 
 
-def phase_profile(torch, model, request, top: int = 15):
-    """Where one request's device time goes: ``torch.profiler`` over one
-    more bf16 request (after the launch counts were read), device kernel
-    time summed by name and by group (the hand-written kernels, cuDNN
+def device_profile(torch, run, top: int = 15) -> dict:
+    """``torch.profiler`` over one call of ``run``: device kernel time
+    summed by name and by group (the hand-written kernels, cuDNN
     convolutions, PyTorch elementwise and reduction kernels, the rest), and
-    the device's busy share of the profiled request's wall time; then the
-    device time of each layer over one more request (:func:`layer_times`)."""
+    the device's busy share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request()
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key) for evt in prof.key_averages()
                    if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0), reverse=True)
@@ -383,14 +477,167 @@ def phase_profile(torch, model, request, top: int = 15):
             groups["elementwise"] += ms
         else:
             groups["other"] += ms
-    emit({
-        "phase": "profile", "wall_ms": wall_ms,
+    return {
+        "wall_ms": wall_ms,
         "device_ms": device_ms if rows else "not measured",
         "busy_share": device_ms / wall_ms if rows else "not measured",
         "groups_ms": groups if rows else "not measured",
         "top": [{"name": k[:100], "ms": ms, "calls": n, "share": ms / device_ms} for ms, n, k in rows[:top]],
-        "layers_ms": layer_times(torch, model, request),
+    }
+
+
+def phase_profile(torch, model, request):
+    """Where one request's device time goes: :func:`device_profile` over one
+    more bf16 request (after the launch counts were read), then the device
+    time of each layer over one more request (:func:`layer_times`)."""
+    emit({"phase": "profile", **device_profile(torch, request), "layers_ms": layer_times(torch, model, request)})
+
+
+def rel_l2(torch, got, want) -> float:
+    num = sum(float((g.float() - w.float()).square().sum()) for g, w in zip(got, want))
+    den = sum(float(w.float().square().sum()) for w in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def check_k5_calls(torch, calls) -> dict:
+    """K5 on the train step's own data: each recorded backward call
+    ``(src, ref, depth, rt, g_in_prod, g_sim, d_src, d_ref)`` against the
+    explicit plain backward, and its forward (launched again on the same
+    inputs) against the plain forward, with the kernels phase's elementwise
+    tolerances."""
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    worst = {"fwd_in_prod": 0.0, "fwd_sim": 0.0, "bwd_d_src": 0.0, "bwd_d_ref": 0.0}
+    ok = True
+    for call in calls:
+        src, ref, depth, rt, g_ip, g_sim, d_src, d_ref = (t.detach() for t in call)
+        ip_k, sim_k = K.warp_sim(src, ref, depth, rt)
+        ip_p, sim_p = K.warp_sim_plain(src, ref, depth, rt)
+        d_ip = (ip_k.float() - ip_p.float()).abs()
+        scale = ip_p.float().abs()
+        ok &= bool((d_ip <= 2 ** -7 * scale + 2 ** -8 * ref.float().abs().max()).all())
+        ok &= bool(((sim_k - sim_p).abs() <= 2 ** -7 * scale.sum(0) + 1e-30).all())
+        worst["fwd_in_prod"] = max(worst["fwd_in_prod"], float((d_ip / (scale + 1e-30)).max()))
+        worst["fwd_sim"] = max(worst["fwd_sim"], float(((sim_k - sim_p).abs() / (scale.sum(0) + 1e-30)).max()))
+        want = K.warp_sim_backward_plain(src, ref, depth, rt, g_ip, g_sim)
+        terms = K.warp_sim_backward_plain(src.abs(), ref.abs(), depth, rt, g_ip.abs(), g_sim.abs())
+        for key, got, w, t in zip(("bwd_d_src", "bwd_d_ref"), (d_src, d_ref), want, terms):
+            d = (got.float() - w.float()).abs()
+            bound_ = w.float().abs() + t.float()
+            ok &= bool((d <= 2 ** -7 * bound_ + 1e-30).all())
+            worst[key] = max(worst[key], float((d / (bound_ + 1e-30)).max()))
+    return {"k5_calls": len(calls), "k5_calls_ok": ok,
+            **{f"k5_calls_worst_{k}_rel": v for k, v in worst.items()}}
+
+
+def phase_train(torch, batch, dev):
+    """The train step at the train point: 1 warm-up and TRAIN_STEPS timed
+    steps on the kernel path, the K5 launch counts, the kernel path's
+    gradients against the plain paths' from the same weights, and one
+    profiled step."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from cds_mvsnet_tpu_torch.models import build_model
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+    from cds_mvsnet_tpu_torch.training import TrainStep
+
+    cfg = TrainConfig(compute_dtype="bf16", remat_features=True)  # SGD lr 0.01, weight decay 0.01
+    model = build_model(ModelConfig(refine=True, ndepths=NDEPTHS), seed=SEED, device=dev)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    # one step's loss and gradients from the same weights on three paths;
+    # gradients() leaves the weights as they are. The kernel path runs
+    # twice: K5's backward adds with atomics, so two runs differ in the last
+    # bits of d_src. The first run records each K5 backward call's inputs and
+    # outputs for the check of every call below.
+    from cds_mvsnet_tpu_torch.ops.kernels import warp_vjp
+
+    backward, calls = warp_vjp.FusedWarpTrain.backward, []
+
+    def recording(ctx, g_in_prod, g_sim):
+        d_src, d_ref, *rest = backward(ctx, g_in_prod, g_sim)
+        calls.append((*ctx.saved_tensors, g_in_prod.contiguous(), g_sim.contiguous(), d_src, d_ref))
+        return (d_src, d_ref, *rest)
+
+    grads = {}
+    for tag, kernels, dtype in (("kernel", True, "bf16"), ("kernel_again", True, "bf16"),
+                                ("plain_bf16", False, "bf16"), ("plain_fp32", False, "fp32")):
+        step = TrainStep(model, TrainConfig(compute_dtype=dtype, remat_features=True), kernels=kernels)
+        warp_vjp.FusedWarpTrain.backward = staticmethod(recording if tag == "kernel" else backward)
+        try:
+            metrics, _ = step.gradients(batch, TRAIN_TEMPERATURE)
+        finally:
+            warp_vjp.FusedWarpTrain.backward = staticmethod(backward)
+        torch.cuda.synchronize()
+        grads[tag] = (float(metrics["loss"]), [p.grad.detach().clone() for p in step.params])
+    for p in model.parameters():
+        p.grad = None
+
+    def group_of(name):
+        return name.split(".")[0] if not name.startswith("stage_net") else "vis"
+
+    cmp = {}
+    for tag in ("kernel_again", "plain_bf16", "plain_fp32"):
+        loss, g = grads[tag]
+        cmp[f"{tag}_loss_rel"] = abs(grads["kernel"][0] - loss) / abs(loss)
+        cmp[f"{tag}_grad_rel_l2"] = rel_l2(torch, grads["kernel"][1], g)
+        for group in sorted({group_of(n) for n in names}):
+            idx = [i for i, n in enumerate(names) if group_of(n) == group]
+            cmp[f"{tag}_grad_rel_l2_{group}"] = rel_l2(torch, [grads["kernel"][1][i] for i in idx],
+                                                       [g[i] for i in idx])
+    del grads
+    cmp.update(check_k5_calls(torch, calls))
+    del calls
+    # The gates. (1) Every K5 call of the kernel path's step, forward and
+    # backward, on its own inputs, within the kernels phase's elementwise
+    # tolerances (check_k5_calls). (2) The step: the loss to 1e-4 relative,
+    # the gradient over all trainable leaves to 5e-2 relative L2. K5 and the
+    # plain warp project, weight and gather with the same fp32 roundings, so
+    # the two bf16 paths run the same forward; their backwards differ in the
+    # order of d_src's fp32 sums (K5 adds with atomics) and in autograd's
+    # bf16 partial sums of d_ref. Only the FeatureNet's gradient sees that,
+    # and it is ill-conditioned in its inputs: in fp32 a 1e-6 relative change
+    # of the input images moves some gradients by more than 1e-2
+    # (tests/test_torch_train_step.py), and two runs of the kernel path,
+    # which differ only in the order of the atomics, differ by about 1e-2
+    # here. A wrong backward moves it by 1 or more: the FeatureNet's gradient
+    # reaches the loss only through the warp.
+    gate = {"k5_calls": "every call within its elementwise tolerance", "loss_rel_max": 1e-4,
+            "grad_rel_l2_max": 5e-2}
+    ok = (cmp["k5_calls_ok"] and cmp["plain_bf16_loss_rel"] <= gate["loss_rel_max"]
+          and cmp["plain_bf16_grad_rel_l2"] <= gate["grad_rel_l2_max"])
+
+    losses = []
+    step = TrainStep(model, cfg)
+    step(batch, TRAIN_TEMPERATURE)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    for k in K.TRAIN_KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, TRAIN_TEMPERATURE)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in out.items()})
+    launches = {k.__name__: k.launches for k in K.TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: n * TRAIN_STEPS for name, n in PER_STEP.items()}
+    finite = all(v == v and abs(v) != float("inf") for row in losses for v in row.values())
+    emit({
+        "phase": "train", "shape": [TRAIN_B, V, TRAIN_H, TRAIN_W, 3], "ndepths": list(NDEPTHS), "D": D_FULL,
+        "compute_dtype": "bf16", "remat_features": True, "temperature": TRAIN_TEMPERATURE,
+        "s_per_step": secs, "peak_mem_bytes": peak, "losses": losses, "launches": launches,
+        "launches_expected": want, "compare": cmp, "gate": gate, "ok": ok and finite and launches == want,
     })
+    emit({"phase": "train_profile", **device_profile(torch, lambda: step(batch, TRAIN_TEMPERATURE))})
+    if not finite:
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if launches != want:
+        raise RuntimeError(f"K5 launch counts {launches} != expected {want}")
+    if not ok:
+        raise RuntimeError("the kernel path's step disagrees with the plain bf16 path's")
+    return launches
 
 
 def main() -> int:
@@ -402,7 +649,7 @@ def main() -> int:
     try:
         from cds_mvsnet_tpu_torch.models import strict_fp32, to_tensors
         from cds_mvsnet_tpu_torch.ops.kernels import _build as kbuild
-        from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+        from cds_mvsnet_tpu_torch.utils.synthetic import synthetic_batch, textured_plane_batch
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -414,14 +661,22 @@ def main() -> int:
     phase_device(torch, kbuild)
     batch = to_tensors(textured_plane_batch(V=V, H=H, W=W, D=D_FULL, seed=SEED), "cuda")
     dev = torch.device("cuda")
-    results = phase_kernels(torch, batch, dev)
+    train_batch = to_tensors(synthetic_batch(B=TRAIN_B, V=V, H=TRAIN_H, W=TRAIN_W, D=D_FULL, refine=True,
+                                             with_gt=True, seed=SEED), "cuda")
+    results = phase_kernels(torch, batch, train_batch, dev)
     launches = phase_serve(torch, batch, dev)
+    del batch
+    torch.cuda.empty_cache()
+    launches.update(phase_train(torch, train_batch, dev))
 
     kernels = []
     for name, rows in results.items():
         source, replaces = KERNEL_INFO[name]
-        # per-request totals at the main-path shapes: K1 runs V-1 times per stage
-        mult = (V - 1) if name == "warp_entropy" else 1
+        # per-request totals at the serve shapes: K1 runs V-1 times per
+        # stage; per-step totals of the sweeps at the train shapes: K5 runs
+        # B·(V-1) times per stage (the GT warps at D=1 are left out)
+        mult = {"warp_entropy": V - 1, "warp_sim": TRAIN_B * (V - 1),
+                "warp_sim_backward": TRAIN_B * (V - 1)}.get(name, 1)
         lib = [r["library_ms"] for r in rows]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -432,6 +687,7 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows) * mult,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
             "library_ms": None if None in lib else sum(lib) * mult,
+            "per": "step" if name in TRAIN_KERNEL_NAMES else "request",
             "per_stage": [{k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                           for r in rows],
         })

@@ -94,6 +94,89 @@ def test_dynconv_branches_matches_plain(gen, ks, OA):
     assert within_one_ulp(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
 
 
+RT = (1.01, 0.02, -1.5, -0.015, 0.99, 2.0, 1e-4, -2e-4, 1.0, 8.0, -4.0, 0.05)
+
+
+def warp_rig(gen, C, per_pixel, D=7):
+    """K5's inputs: a source smaller than the reference in one axis and
+    larger in the other, a homography that pushes some samples out of view."""
+    H, W, h, w = 23, 41, 19, 37
+    src, ref = uniform(gen, (H, W, C)), uniform(gen, (C, h, w))
+    rt = torch.tensor(RT, device="cuda")
+    depth = torch.linspace(2.0, 40.0, D, device="cuda")
+    if per_pixel:
+        depth = (depth[:, None, None] * uniform(gen, (1, h, w), 0.8, 1.2, torch.float32)).contiguous()
+    return src, ref, depth, rt
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_warp_sim_matches_plain(gen, C, per_pixel):
+    src, ref, depth, rt = warp_rig(gen, C, per_pixel)
+    before = K.warp_sim.launches
+    ip, sim = K.warp_sim(src, ref, depth, rt)
+    torch.cuda.synchronize()
+    assert K.warp_sim.launches == before + 1
+    ip_p, sim_p = K.warp_sim_plain(src, ref, depth, rt)
+    assert within_one_ulp(ip, ip_p, 2 ** -8)
+    # sim sums C fp32 products of the same bf16 values, but a warped value
+    # may sit one bf16 ulp away: at most 2^-8 of each |term|
+    assert bool(((sim - sim_p).abs() <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all())
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_warp_sim_backward_matches_plain(gen, C, per_pixel):
+    src, ref, depth, rt = warp_rig(gen, C, per_pixel)
+    D, (_, h, w) = depth.shape[0], ref.shape
+    g_ip = uniform(gen, (C, D, h, w))
+    g_sim = uniform(gen, (D, h, w), dtype=torch.float32)
+    before = K.warp_sim_backward.launches
+    d_src, d_ref = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)
+    torch.cuda.synchronize()
+    assert K.warp_sim_backward.launches == before + 1
+    want = K.warp_sim_backward_plain(src, ref, depth, rt, g_ip, g_sim)
+    # the plain version on |inputs| is the sum of |terms| behind each element
+    # (the bilinear weights are >= 0); fp32 sums in another order (atomics on
+    # the card) and one-ulp flips of a bf16 warped value stay within 2^-8 of
+    # it, and each side rounds once to bf16
+    scale = K.warp_sim_backward_plain(src.abs(), ref.abs(), depth, rt, g_ip.abs(), g_sim.abs())
+    for got, want_, s in zip((d_src, d_ref), want, scale):
+        assert got.dtype == torch.bfloat16
+        assert bool(((got.float() - want_.float()).abs() <= 2 ** -7 * (want_.float().abs() + s.float())
+                     + 1e-6).all())
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_fused_warp_train_gradients_match_plain_autograd(gen, C):
+    """K5's Function against autograd of the plain forward, on a loss linear
+    in (in_prod, sim)."""
+    src, ref, depth, rt = warp_rig(gen, C, True)
+    w_ip, w_sim = uniform(gen, (C, depth.shape[0], *ref.shape[1:])), uniform(gen, depth.shape, dtype=torch.float32)
+    grads = []
+    for fn in (K.fused_warp_train, K.warp_sim_plain):
+        s, r = src.clone().requires_grad_(), ref.clone().requires_grad_()
+        ip, sim = fn(s, r, depth, rt)
+        ((ip.float() * w_ip.float()).sum() + (sim * w_sim).sum()).backward()
+        grads.append((s.grad.float(), r.grad.float()))
+    for got, want in zip(*grads):
+        assert float((got - want).norm() / want.norm()) <= 1e-2
+
+
+def test_fused_warp_train_raises_rather_than_fall_back(gen):
+    src, ref, depth, rt = warp_rig(gen, 8, False)
+    with pytest.raises(ValueError, match="bf16"):
+        K.fused_warp_train(src.float(), ref.float(), depth, rt)
+    with pytest.raises(ValueError, match="devices"):
+        K.fused_warp_train(src, ref.cpu(), depth, rt)
+    ip, sim = K.warp_sim(src, ref, depth, rt)
+    g_sim = torch.zeros_like(sim)
+    with pytest.raises(ValueError, match="devices"):
+        K.warp_sim_backward(src, ref, depth, rt, ip, g_sim.cpu())
+    with pytest.raises(ValueError, match="g_in_prod"):
+        K.warp_sim_backward(src, ref, depth, rt, ip.float(), g_sim)
+
+
 def test_wrappers_raise_rather_than_fall_back(gen):
     vol = uniform(gen, (8, 4, 6, 6), dtype=torch.float32)
     w = uniform(gen, (8, 8, 3, 3, 3), dtype=torch.float32)

@@ -108,7 +108,33 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_refinement_is_not_ported_yet():
-    model = build_model(ModelConfig(refine=True), device="cpu")
-    b = to_tensors(textured_plane_batch(V=2, H=32, W=32, D=8, refine=True), "cpu")
-    with pytest.raises(NotImplementedError, match="refinement"):
-        model(b["imgs"], b["proj_matrices"], b["depth_values"])
+    """Once refused, refinement now runs at eval: the cascade works at half
+    the input resolution and the head brings stage 3's depth back to it."""
+    model = build_model(ModelConfig(refine=True, ndepths=NDEPTHS), device="cpu")
+    b = to_tensors(textured_plane_batch(V=2, H=64, W=64, D=16, refine=True), "cpu")
+    out = model(b["imgs"], b["proj_matrices"], b["depth_values"])
+    assert out["stage3"]["depth"].shape == (1, 32, 32)
+    assert out["refined_depth"].shape == (1, 64, 64)
+    assert bool(torch.isfinite(out["refined_depth"]).all())
+
+
+def test_cascade_with_refinement_matches_jax_fp32(setup):
+    params = setup[0]
+    batch = textured_plane_batch(V=3, H=64, W=64, D=16, refine=True)
+    cfg = JaxModelConfig(refine=True, ndepths=NDEPTHS)
+    with jax_highest():
+        want = jax.jit(lambda p, i, pm, dv: apply_cds_mvsnet(p, cfg, i, pm, dv, temperature=1.0,
+                                                             feature_impl="plain")[0])(
+            params, batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    model = build_model(ModelConfig(refine=True, ndepths=NDEPTHS), params=jax.tree.map(np.asarray, params),
+                        device="cpu")
+    b = to_tensors(batch, "cpu")
+    got = model(b["imgs"], b["proj_matrices"], b["depth_values"], temperature=1.0)
+    interval = float(b["depth_values"][0, 1] - b["depth_values"][0, 0])
+    # at temperature 1 the fp32 cascades agree to fp32 rounding (see
+    # TOLERANCES); the head adds fp32 convs on the image and the depth
+    for key in ("stage3", "refined_depth"):
+        g = N(got[key]["depth"] if key == "stage3" else got[key])
+        w = np.asarray(want[key]["depth"] if key == "stage3" else want[key])
+        assert g.shape == w.shape, key
+        assert np.abs(g - w).max() <= 1e-4 * interval, (key, np.abs(g - w).max() / interval)
