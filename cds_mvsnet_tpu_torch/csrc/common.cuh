@@ -25,6 +25,26 @@ __device__ __forceinline__ void unpack8(const uint4 q, float* out) {
   }
 }
 
+// Eight consecutive values, 16-byte aligned, as fp32: one 16-byte load of
+// bf16, two of fp32.
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), out);
+}
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// A stored value as fp32, and fp32 rounded to the stored type.
+__device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return f2bf(v); }
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+
 CDS_EXPORT const char* cds_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -5,11 +5,13 @@
 constexpr int O = 8;
 constexpr int TX = 32, TY = 8;
 
+// T: the volume's and the output's type, bf16 or fp32; the sums are fp32.
+template <typename T>
 __global__ void __launch_bounds__(TX * TY) conv3d_bn_relu_kernel(
-    const bf16* __restrict__ vol,   // (C, D, h, w)
+    const T* __restrict__ vol,      // (C, D, h, w)
     const float* __restrict__ wt,   // (O, C, 3, 3, 3), eval BN folded in
     const float* __restrict__ bias, // (O,)
-    bf16* __restrict__ out,         // (O, D, h, w)
+    T* __restrict__ out,            // (O, D, h, w)
     int C, int D, int h, int w) {
   extern __shared__ float ws[];  // [c][tap][o]: the O weights of one tap side by side
   const int tid = threadIdx.y * TX + threadIdx.x;
@@ -33,7 +35,7 @@ __global__ void __launch_bounds__(TX * TY) conv3d_bn_relu_kernel(
     for (int kd = 0; kd < 3; ++kd) {
       const int dz = d + kd - 1;
       if (dz < 0 || dz >= D) continue;
-      const bf16* plane = vol + ((size_t)c * D + dz) * hw;
+      const T* plane = vol + ((size_t)c * D + dz) * hw;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
         const int yy = y + ky - 1;
@@ -42,7 +44,7 @@ __global__ void __launch_bounds__(TX * TY) conv3d_bn_relu_kernel(
         for (int kx = 0; kx < 3; ++kx) {
           const int xx = x + kx - 1;
           if (xx < 0 || xx >= w) continue;
-          const float v = bf2f(plane[(size_t)yy * w + xx]);
+          const float v = to_f32(plane[(size_t)yy * w + xx]);
           const float* wp = ws + (c * 27 + kd * 9 + ky * 3 + kx) * O;
 #pragma unroll
           for (int o = 0; o < O; ++o) acc[o] = fmaf(v, wp[o], acc[o]);
@@ -53,18 +55,29 @@ __global__ void __launch_bounds__(TX * TY) conv3d_bn_relu_kernel(
   const size_t pix = (size_t)y * w + x;
 #pragma unroll
   for (int o = 0; o < O; ++o) {
-    out[((size_t)o * D + d) * hw + pix] = f2bf(fmaxf(acc[o] + __ldg(bias + o), 0.f));
+    out[((size_t)o * D + d) * hw + pix] = from_f32<T>(fmaxf(acc[o] + __ldg(bias + o), 0.f));
   }
 }
 
-CDS_EXPORT int conv3d_bn_relu_launch(const void* vol, const void* wt, const void* bias,
-                                     void* out, int C, int D, int h, int w, void* stream) {
+template <typename T>
+static int launch(const void* vol, const void* wt, const void* bias, void* out, int C, int D,
+                  int h, int w, void* stream) {
   const dim3 block(TX, TY);
   const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, D);
   const size_t smem = (size_t)C * 27 * O * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  conv3d_bn_relu_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(vol), static_cast<const float*>(wt),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), C, D, h, w);
+  conv3d_bn_relu_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(vol), static_cast<const float*>(wt), static_cast<const float*>(bias),
+      static_cast<T*>(out), C, D, h, w);
   return (int)cudaGetLastError();
+}
+
+CDS_EXPORT int conv3d_bn_relu_launch(const void* vol, const void* wt, const void* bias,
+                                     void* out, int C, int D, int h, int w, void* stream) {
+  return launch<bf16>(vol, wt, bias, out, C, D, h, w, stream);
+}
+
+CDS_EXPORT int conv3d_bn_relu_f32_launch(const void* vol, const void* wt, const void* bias,
+                                         void* out, int C, int D, int h, int w, void* stream) {
+  return launch<float>(vol, wt, bias, out, C, D, h, w, stream);
 }

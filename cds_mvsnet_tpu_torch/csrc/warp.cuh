@@ -1,5 +1,5 @@
 // The plane-sweep projection and bilinear gather shared by K1/K5's forward
-// (warp.cu) and K5's backward (warp_vjp.cu). Wrappers, plain versions and
+// (warp.cu), K5's backward (warp_vjp.cu) and K9 (gather.cu). Wrappers, plain versions and
 // design notes: ops/kernels/warp.py, ops/kernels/warp_vjp.py.
 #pragma once
 
@@ -28,15 +28,10 @@ __device__ __forceinline__ void plane_rows(const float* r, int x, int y, float* 
     L[i] = __fadd_rn(__fadd_rn(__fmul_rn(r[3 * i], X), __fmul_rn(r[3 * i + 1], Y)), r[3 * i + 2]);
 }
 
-// Project with the 12 homography scalars r (row-major rotation, then the
-// translation) at depth dep: z = L2*dep + t2 + 1e-6, exactly as the TPU
-// kernel. Bounds are tested on floats, so far-off or non-finite coordinates
-// are never converted to int.
-__device__ __forceinline__ Footprint project(const float* r, const float* L, float dep, int H,
-                                             int W) {
-  const float z = __fadd_rn(__fadd_rn(__fmul_rn(L[2], dep), r[11]), 1e-6f);
-  const float px = __fdiv_rn(__fadd_rn(__fmul_rn(L[0], dep), r[9]), z);
-  const float py = __fdiv_rn(__fadd_rn(__fmul_rn(L[1], dep), r[10]), z);
+// Bilinear footprint of the source-pixel coordinates (px, py) on the
+// align_corners=True pixel grid of an H x W source. Bounds are tested on
+// floats, so far-off or non-finite coordinates are never converted to int.
+__device__ __forceinline__ Footprint footprint(float px, float py, int H, int W) {
   const float x0f = floorf(px), y0f = floorf(py);
   const float tx = px - x0f, ty = py - y0f;
   const bool vx0 = x0f >= 0.f && x0f <= (float)(W - 1);
@@ -57,15 +52,27 @@ __device__ __forceinline__ Footprint project(const float* r, const float* L, flo
   return f;
 }
 
-// acc[c] = sum over in-bounds corners, in corner order, of w_k * src[corner_k, c].
-// kExact rounds each product and sum as the plain version does, so the warped
-// values equal its bit for bit: K5 (forward and the backward's recompute),
-// whose train step is held against the plain path's, and at random weights
-// that step's gradients move by 0.13 relative L2 when 2e-5 of the warped
-// values sit one bf16 ulp off. Otherwise the multiply-adds fuse: K1, which the
-// op-by-op gather costs 3-4 % of its time.
-template <int C, bool kExact>
-__device__ __forceinline__ void gather(const bf16* __restrict__ src, const Footprint& f, int W,
+// Project with the 12 homography scalars r (row-major rotation, then the
+// translation) at depth dep: z = L2*dep + t2 + 1e-6, exactly as the TPU
+// kernel.
+__device__ __forceinline__ Footprint project(const float* r, const float* L, float dep, int H,
+                                             int W) {
+  const float z = __fadd_rn(__fadd_rn(__fmul_rn(L[2], dep), r[11]), 1e-6f);
+  const float px = __fdiv_rn(__fadd_rn(__fmul_rn(L[0], dep), r[9]), z);
+  const float py = __fdiv_rn(__fadd_rn(__fmul_rn(L[1], dep), r[10]), z);
+  return footprint(px, py, H, W);
+}
+
+// acc[c] = sum over in-bounds corners, in corner order, of w_k * src[corner_k, c],
+// for a channels-last bf16 or fp32 source. kExact rounds each product and sum
+// as the plain version does, so the warped values equal its bit for bit: K5
+// (forward and the backward's recompute), whose train step is held against
+// the plain path's, and at random weights that step's gradients move by 0.13
+// relative L2 when 2e-5 of the warped values sit one bf16 ulp off; and K9
+// (gather.cu). Otherwise the multiply-adds fuse: K1, which the op-by-op
+// gather costs 3-4 % of its time.
+template <int C, bool kExact, typename T>
+__device__ __forceinline__ void gather(const T* __restrict__ src, const Footprint& f, int W,
                                        float* acc) {
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.f;
@@ -73,12 +80,12 @@ __device__ __forceinline__ void gather(const bf16* __restrict__ src, const Footp
   for (int k = 0; k < 4; ++k) {
     if (!f.ok[k]) continue;
     const int xi = f.x0 + (k & 1), yi = f.y0 + (k >> 1);
-    // one corner = C contiguous bf16 = C/8 16-byte loads
-    const uint4* p = reinterpret_cast<const uint4*>(src + ((size_t)yi * W + xi) * C);
+    // one corner = C contiguous values, read 8 at a time in 16-byte loads
+    const T* p = src + ((size_t)yi * W + xi) * C;
 #pragma unroll
     for (int q = 0; q < C / 8; ++q) {
       float v[8];
-      unpack8(__ldg(p + q), v);
+      load8(p + q * 8, v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int c = q * 8 + i;

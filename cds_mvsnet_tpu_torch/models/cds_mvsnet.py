@@ -18,10 +18,19 @@ training each attention BN keeps statistics per call (``bn_groups``) and
 moves its running statistics in the upstream call order (``bn_order``).
 
 Geometry, softmaxes, entropy and regression stay fp32 whatever
-``compute_dtype`` is. In bf16 the kernel sites run the hand-written kernels
-(``kernels=True``, the default) or their plain versions: K1-K4 at eval, K5
-in training; fp32 always runs the plain versions, as the JAX package keeps
-its fp32 runs off the Pallas kernels.
+``compute_dtype`` is. With ``kernels=True`` (the default) the kernel sites
+run the hand-written kernels, as the JAX package runs its Pallas kernels on
+its device:
+- bf16 eval (``KERNEL_OPS``): K1 warps (``warp_pallas_v8`` there), K2 runs
+  cost-reg conv0 (``conv3d_front``), K3 the exit (``exit_softargmin``) and
+  K4 the FeatureNet's conv01 (``sparse_s2d_conv``);
+- fp32 eval (``FP32_OPS``): K9 gathers the plane sweep (``warp_pallas_v3``,
+  which the JAX fp32 route runs at C ≤ 8, ``stage_net.py:427,476-484``) and
+  K2 runs conv0 on the fp32 volume (``conv3d_front``, ``cost_reg.py:151-198``);
+  the exit and conv01 stay plain, as the JAX fp32 route keeps the XLA tail
+  (``stage_net.py:544``) and the dense FeatureNet;
+- training in bf16: K5 (``fused_warp_train``); in fp32 the plain warp.
+``kernels=False`` runs every site's plain version (``PLAIN_OPS``).
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from .cost_reg import CostRegNet
 from .feature_net import FEATURE_OUT_CHANNELS, FeatureNet
 from .layers import StatsCollector, reset_parameters
 from .refinement import RefineNet
-from .stage_net import KERNEL_OPS, PLAIN_OPS, StageNet, stage_net, stage_net_train
+from .stage_net import FP32_OPS, KERNEL_OPS, PLAIN_OPS, StageNet, stage_net, stage_net_train
 
 __all__ = ["CDSMVSNet", "build_model", "feat_target", "pairwise_epipoles", "resolve_device", "strict_fp32",
            "to_tensors"]
@@ -92,8 +101,17 @@ class CDSMVSNet(nn.Module):
     @torch.no_grad()
     def forward(self, imgs, proj_matrices, depth_values, temperature: float = 0.001,
                 compute_dtype=torch.float32, kernels: bool = True):
-        """Eval: every BN on its running statistics."""
-        ops = KERNEL_OPS if kernels and compute_dtype == torch.bfloat16 else PLAIN_OPS
+        """Eval: every BN on its running statistics. The kernel sites run
+        ``KERNEL_OPS`` in bf16, ``FP32_OPS`` in fp32, ``PLAIN_OPS`` without
+        ``kernels``."""
+        if not kernels:
+            ops = PLAIN_OPS
+        elif compute_dtype == torch.bfloat16:
+            ops = KERNEL_OPS
+        elif compute_dtype == torch.float32:
+            ops = FP32_OPS
+        else:
+            raise ValueError(f"compute_dtype {compute_dtype}: bf16 or fp32")
         return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=ops)
 
     def forward_train(self, imgs, proj_matrices, depth_values, gt_depths, stats: StatsCollector,

@@ -22,10 +22,18 @@ only a model built without refinement skips the tree's ``refine_network``
 leaves, as the JAX eval CLI does with ``--no_refinement``. Numpy only,
 besides torch: the tree's leaves are numpy arrays (or anything
 ``np.asarray`` takes).
+
+:func:`load_any_checkpoint` reads either kind of checkpoint the eval CLI
+takes: a ``save_params`` ``.npz``, or an upstream ``.pth``/``.ckpt`` whose
+``state_dict`` keys are this package's module paths (after a ``module.``
+prefix is stripped), as ``cds_mvsnet_tpu/cli/test_cli.py:56-61`` with
+``models/convert.py:65-108`` there.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
 import re
 from pathlib import Path
 from typing import Any
@@ -40,6 +48,7 @@ __all__ = [
     "load_params",
     "params_from_jax",
     "params_to_jax",
+    "load_any_checkpoint",
     "load_into",
     "save_model",
 ]
@@ -153,3 +162,47 @@ def load_into(model: torch.nn.Module, params) -> None:
     if bad:
         raise ValueError(f"shape mismatch (leaf, model): {bad[:5]}")
     model.load_state_dict(state, strict=True)
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    """Unpickles torch checkpoints whose pickle holds classes this package
+    does not ship (upstream stores its ConfigParser object there) as empty
+    stand-ins."""
+
+    _ALLOWED_PREFIXES = ("torch", "collections", "numpy", "builtins", "_codecs")
+
+    def find_class(self, module, name):
+        if module.startswith(self._ALLOWED_PREFIXES):
+            return super().find_class(module, name)
+        return type(name, (), {"__init__": lambda self, *a, **k: None,
+                               "__setstate__": lambda self, state: None})
+
+
+class _PickleShim:
+    Unpickler = _TolerantUnpickler
+    load = staticmethod(lambda f, **kw: _TolerantUnpickler(f, **kw).load())
+    loads = staticmethod(lambda b, **kw: _TolerantUnpickler(io.BytesIO(b), **kw).load())
+
+
+def _load_state_dict_file(path) -> dict[str, np.ndarray]:
+    """An upstream checkpoint's ``state_dict`` (the file's, or the file
+    itself) as fp32 numpy arrays in torch layouts: ``module.`` prefixes
+    stripped, ``num_batches_tracked`` dropped."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False, pickle_module=_PickleShim)
+    state = ckpt["state_dict"] if isinstance(ckpt, dict) and "state_dict" in ckpt else ckpt
+    out = {}
+    for k, v in state.items():
+        k = k.replace("module.", "", 1) if k.startswith("module.") else k
+        if not k.endswith("num_batches_tracked"):
+            out[k] = v.detach().float().cpu().numpy()
+    return out
+
+
+def load_any_checkpoint(path) -> Params:
+    """A ``save_params`` ``.npz`` or an upstream ``.pth``/``.ckpt`` as a JAX
+    param tree, which :func:`load_into` (and ``build_model(params=...)``)
+    takes."""
+    if str(path).endswith(".npz"):
+        return load_params(path)
+    flat = _load_state_dict_file(path)
+    return unflatten_params({k: np.ascontiguousarray(_to_jax_layout(k, v)) for k, v in flat.items()})

@@ -9,8 +9,10 @@ a weight in (0, 1), and ``volume_sum += in_prod · vis``. Then ``volume_mean
 = volume_sum / (vis_sum + 1e-6)`` goes through the cost-regularisation UNet
 and the softmax/regression tail.
 
-- :func:`stage_net`, eval: per batch element; K1 warps, K2 runs the UNet's
-  conv0 and K3 (``ops/kernels/regress.py``) the exit.
+- :func:`stage_net`, eval: per batch element, through one of three
+  :class:`Ops`: ``KERNEL_OPS`` (bf16: K1 warps, K2 runs the UNet's conv0 and
+  K3, ``ops/kernels/regress.py``, the exit), ``FP32_OPS`` (fp32: K9 gathers,
+  :func:`warp_entropy_gather`, and K2 runs conv0) or ``PLAIN_OPS``.
 - :func:`stage_net_train`, train (``train=True`` there): the warp is K5
   (``ops/kernels/warp_vjp.py``) or its plain version, launched per batch
   element and source view, once over the hypotheses and once at the GT depth
@@ -28,12 +30,13 @@ import torch
 from torch import nn
 
 from ..ops import kernels as K
-from ..ops.geometry import relative_warp_transform
+from ..ops.geometry import relative_warp_transform, sweep_coords
 from ..ops.sampling import confidence_regression, depth_regression, softmax_entropy
 from .cost_reg import CostRegNet
 from .layers import ConvBnReLU2d, conv2d
 
-__all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "KERNEL_OPS", "PLAIN_OPS"]
+__all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "warp_entropy_gather", "KERNEL_OPS",
+           "FP32_OPS", "PLAIN_OPS"]
 
 
 @dataclass(frozen=True)
@@ -47,7 +50,24 @@ class Ops:
     dynconv: object
 
 
+def warp_entropy_gather(src, ref, depth, rt):
+    """The fp32 route's warp, ``warp_entropy``'s contract: source-pixel
+    coordinates from ``plane_sweep_coords``'s arithmetic, K9's gather, then
+    ``in_prod = ref ⊙ warped``, ``sim = Σ_C in_prod`` and the entropy of
+    ``softmax_D(sim)`` in plain PyTorch, as the JAX package's fp32 route
+    (``stage_net.py:405``, ``:480-507``). It runs K9 at every stage; the JAX
+    package's C ≤ 8 crossover (``:412-427``) was measured on its TPU."""
+    C, h, w = ref.shape
+    D = depth.shape[0]
+    px, py = sweep_coords(rt[:9].reshape(1, 3, 3), rt[9:].reshape(1, 3, 1), depth[None], h, w)
+    warped = K.warp_gather(src, px.reshape(D, h, w), py.reshape(D, h, w))  # (C, D, h, w)
+    in_prod = ref[:, None] * warped
+    entropy = softmax_entropy(in_prod.float().sum(0)[None], dim=1)[0, 0]
+    return in_prod, entropy
+
+
 KERNEL_OPS = Ops(K.warp_entropy, K.conv3d_bn_relu, K.exit_softargmin, K.dynconv_branches)
+FP32_OPS = Ops(warp_entropy_gather, K.conv3d_bn_relu, K.exit_softargmin_plain, K.dynconv_branches_plain)
 PLAIN_OPS = Ops(K.warp_entropy_plain, K.conv3d_bn_relu_plain, K.exit_softargmin_plain,
                 K.dynconv_branches_plain)
 

@@ -19,6 +19,7 @@ __all__ = [
     "epipole_from_fundamental",
     "relative_warp_transform",
     "plane_sweep_coords",
+    "sweep_coords",
     "homography_warp",
 ]
 
@@ -68,9 +69,16 @@ def epipole_from_fundamental(F: torch.Tensor, det_eps: float = 1e-12) -> torch.T
     """Epipole in image 1 (right null direction of F) in pixels, ``(B, 2)``.
 
     The regular case solves the upstream 2x2 system built from F's rows; where
-    its determinant is at most ``det_eps`` (epipole at infinity) the smallest
-    right singular vector is used, with its homogeneous scale clamped, so the
-    result stays finite.
+    its determinant is at most ``det_eps`` (epipole at infinity) the right
+    null vector is used, with its homogeneous scale clamped, so the result
+    stays finite. The JAX package takes that vector from an SVD; F has rank
+    2, so the longest cross product of two of its rows spans the same line.
+    It is taken in fp64 and needs no host round trip, where
+    ``torch.linalg.svd`` of a CUDA tensor synchronises the host with the card
+    on every forward. Its sign is free, as the SVD's: DynamicConv uses only
+    the line's direction, through ``(u², 2uv, v²)``. Where F is 0 (two views
+    with one camera centre) every cross product is 0 and the vector is
+    ``[0, 0, 1]``, as the SVD of a zero matrix gives.
     """
     c = 1e3
     eq1 = c * F[:, 0] + F[:, 1] + F[:, 2]
@@ -85,8 +93,15 @@ def epipole_from_fundamental(F: torch.Tensor, det_eps: float = 1e-12) -> torch.T
     ey = (-d * rhs1 + a * rhs2) / safe_det
     direct = torch.stack([ex, ey], -1)
 
-    _, _, vt = torch.linalg.svd(F)
-    n = vt[:, -1, :]
+    rows = F.double().unbind(1)
+    cands = torch.stack([torch.linalg.cross(rows[i], rows[j]) for i, j in ((0, 1), (0, 2), (1, 2))], 1)
+    norms = cands.norm(dim=-1)  # (B, 3)
+    best = norms.argmax(1)[:, None, None].expand(-1, 1, 3)
+    top = norms.amax(1, keepdim=True)
+    n = torch.gather(cands, 1, best)[:, 0] / torch.where(top > 0, top, torch.ones_like(top))
+    unit = torch.zeros_like(n)
+    unit[:, 2] = 1.0  # a fill on the device: a tensor made from a list would be a host copy
+    n = torch.where(top > 0, n, unit).to(F.dtype)
     w = n[:, 2]
     w = torch.sign(torch.where(w == 0, torch.ones_like(w), w)) * w.abs().clamp_min(1e-8)
     fallback = n[:, :2] / w[:, None]
@@ -112,9 +127,14 @@ def plane_sweep_coords(ref_cam, src_cam, depth_values: torch.Tensor, H: int, W: 
     """Source-pixel coordinates ``(px, py)``, each ``(B, D, H*W)``, of every
     (depth plane, ref pixel) pair. ``depth_values`` is ``(B, D)`` or
     ``(B, D, H, W)``."""
+    return sweep_coords(*relative_warp_transform(ref_cam, src_cam), depth_values, H, W)
+
+
+def sweep_coords(rot: torch.Tensor, trans: torch.Tensor, depth_values: torch.Tensor, H: int, W: int):
+    """:func:`plane_sweep_coords` from the pair's ``(rot (B,3,3), trans
+    (B,3,1))`` of :func:`relative_warp_transform`."""
     B, D = depth_values.shape[:2]
     dtype, device = depth_values.dtype, depth_values.device
-    rot, trans = relative_warp_transform(ref_cam, src_cam)
     y, x = torch.meshgrid(
         torch.arange(H, dtype=dtype, device=device),
         torch.arange(W, dtype=dtype, device=device),

@@ -6,7 +6,10 @@ written directly in pixel coordinates, with one in-bounds mask per corner.
 A corner out of bounds gets the weight 0 through ``torch.where``, not a
 multiply by the mask: a far-off projection can give non-finite coordinates
 (``tx = inf - inf``), and ``NaN * 0`` would carry NaN into the result and
-into autograd's backward.
+into autograd's backward. Bounds are tested on the float corners, as the
+kernels test them: the int conversion of a NaN or huge coordinate is left
+to the device (x86 gives the most negative int), so only the clamped gather
+index is taken from it.
 """
 
 from __future__ import annotations
@@ -33,16 +36,17 @@ def grid_sample_pixel(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     y0i = y0.to(torch.int64)
     src_flat = src.reshape(B, H * W, C)
 
-    def corner(xi, yi, w):
-        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+    def corner(dx, dy, w):
+        xf, yf = x0 + dx, y0 + dy
+        inb = (xf >= 0) & (xf <= W - 1) & (yf >= 0) & (yf <= H - 1)
+        idx = (y0i + dy).clamp(0, H - 1) * W + (x0i + dx).clamp(0, W - 1)
         vals = torch.gather(src_flat, 1, idx[:, :, None].expand(-1, -1, C))
         return vals * torch.where(inb, w, torch.zeros_like(w))[:, :, None]
 
     out = (
-        corner(x0i, y0i, (1 - tx) * (1 - ty))
-        + corner(x0i + 1, y0i, tx * (1 - ty))
-        + corner(x0i, y0i + 1, (1 - tx) * ty)
-        + corner(x0i + 1, y0i + 1, tx * ty)
+        corner(0, 0, (1 - tx) * (1 - ty))
+        + corner(1, 0, tx * (1 - ty))
+        + corner(0, 1, (1 - tx) * ty)
+        + corner(1, 1, tx * ty)
     )
     return out.reshape(B, *sample_shape, C)

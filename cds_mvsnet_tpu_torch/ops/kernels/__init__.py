@@ -7,6 +7,7 @@ int that grows by one per launch and nowhere else).
 """
 
 from .conv3d import conv3d_bn_relu, conv3d_bn_relu_plain, fold_bn_into_conv3d
+from .gather import warp_gather, warp_gather_plain
 from .dynconv import dynconv_branches, dynconv_branches_plain
 from .regress import exit_softargmin, exit_softargmin_plain
 from .warp import warp_entropy, warp_entropy_plain
@@ -19,13 +20,16 @@ from .warp_vjp import (
     warp_sim_plain,
 )
 
-# the eval cascade's kernels, and the train step's
+# the eval cascade's kernels (bf16 route), the train step's, and the fp32
+# eval route's (K2 serves both eval routes)
 KERNELS = (warp_entropy, conv3d_bn_relu, exit_softargmin, dynconv_branches)
 TRAIN_KERNELS = (warp_sim, warp_sim_backward)
+FP32_KERNELS = (warp_gather, conv3d_bn_relu)
 
 __all__ = [
     "KERNELS",
     "TRAIN_KERNELS",
+    "FP32_KERNELS",
     "FusedWarpTrain",
     "fused_warp_train",
     "conv3d_bn_relu",
@@ -37,6 +41,8 @@ __all__ = [
     "fold_bn_into_conv3d",
     "warp_entropy",
     "warp_entropy_plain",
+    "warp_gather",
+    "warp_gather_plain",
     "warp_sim",
     "warp_sim_backward",
     "warp_sim_backward_plain",

@@ -8,7 +8,7 @@ import torch
 
 from . import _build
 
-__all__ = ["require", "on_card", "entry", "ptr", "stream"]
+__all__ = ["require", "on_card", "entry", "ptr", "stream", "P", "I", "L"]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -48,3 +48,4 @@ def stream(device: torch.device) -> ctypes.c_void_p:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong

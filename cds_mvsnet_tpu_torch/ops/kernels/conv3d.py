@@ -1,5 +1,6 @@
 """K2: cost-regularisation conv0, ``relu(conv3d_3x3x3(vol) + b)`` with eval
-BatchNorm folded into ``(w, b)``.
+BatchNorm folded into ``(w, b)``, on a bf16 volume (the bf16 route) or an
+fp32 one (the fp32 route); the output has the volume's dtype.
 
 Replaces ``cds_mvsnet_tpu/ops/pallas/conv3d.py::conv3d_front`` (:159, body
 ``_conv3d_kernel`` :68). Kernel source: ``csrc/conv3d.cu``.
@@ -15,7 +16,10 @@ neighbouring voxels along w, and the 27-fold reuse of each input voxel is left
 to the L1 cache. The CUDA cores' fp32 rate, not memory, limits this version;
 a ``wgmma`` form over shared-memory tiles is later work. The TPU kernel's
 three pre-shifted volume copies and 8-row DMA windows are Mosaic mechanics and
-are not carried over.
+are not carried over. The fp32 instantiation is the same body on fp32
+loads and stores (twice the bytes). The TPU kernel rounds an fp32 volume to
+bf16 for its matrix unit (``conv3d.py:186-187,198``); that is an input
+format of the TPU, not the function, so the port's fp32 route stays fp32.
 """
 
 from __future__ import annotations
@@ -47,20 +51,22 @@ def conv3d_bn_relu_plain(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
 
 
 def conv3d_bn_relu(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``vol (C, D, h, w)`` bf16 -> ``(8, D, h, w)`` bf16; ``w (8, C, 3, 3, 3)``
-    and ``b (8,)`` fp32 with BN folded (:func:`fold_bn_into_conv3d`)."""
+    """``vol (C, D, h, w)`` bf16 or fp32 -> ``(8, D, h, w)`` in vol's dtype;
+    ``w (8, C, 3, 3, 3)`` and ``b (8,)`` fp32 with BN folded
+    (:func:`fold_bn_into_conv3d`)."""
     require(vol.ndim == 4, f"conv3d_bn_relu: vol {tuple(vol.shape)}")
     C, D, h, wd = vol.shape
     require(tuple(w.shape) == (O, C, 3, 3, 3), f"conv3d_bn_relu: w {tuple(w.shape)} for C={C}")
     require(tuple(b.shape) == (O,), f"conv3d_bn_relu: b {tuple(b.shape)}")
     require(C * 27 * O * 4 <= 48 * 1024, f"conv3d_bn_relu: C={C} weights exceed shared memory")
-    require(vol.dtype == torch.bfloat16, "conv3d_bn_relu: vol must be bf16")
+    require(vol.dtype in (torch.bfloat16, torch.float32), "conv3d_bn_relu: vol must be bf16 or fp32")
     require(w.dtype == b.dtype == torch.float32, "conv3d_bn_relu: w and b must be fp32")
     require(all(t.is_contiguous() for t in (vol, w, b)), "conv3d_bn_relu: inputs must be contiguous")
     if not on_card("conv3d_bn_relu", vol, w, b):
         return conv3d_bn_relu_plain(vol, w, b)
-    out = torch.empty((O, D, h, wd), dtype=torch.bfloat16, device=vol.device)
-    lib, fn = entry("conv3d", "conv3d_bn_relu_launch", [P, P, P, P, I, I, I, I, P])
+    out = torch.empty((O, D, h, wd), dtype=vol.dtype, device=vol.device)
+    name = "conv3d_bn_relu_f32_launch" if vol.dtype == torch.float32 else "conv3d_bn_relu_launch"
+    lib, fn = entry("conv3d", name, [P, P, P, P, I, I, I, I, P])
     err = fn(ptr(vol), ptr(w), ptr(b), ptr(out), C, D, h, wd, stream(vol.device))
     _build.check(lib, err, "conv3d_bn_relu")
     conv3d_bn_relu.launches += 1

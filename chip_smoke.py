@@ -13,12 +13,16 @@ Phases, one JSON line each:
    ndepths 48/32/8), with the tolerance stated beside each comparison and the
    kernel's, the plain version's and, where one PyTorch call computes the
    same function, that call's time;
+   K9 (fp32 and bf16) and K2 in fp32 at the three stage shapes of the DTU
+   protocol point (the cascade at 576x768 under refinement);
    K5's forward and backward are checked the same way at the three stage
    shapes of the train point (per batch element);
 3. serve: the eval cascade with seeded random weights answers 3 requests at
    1152x864; every kernel's launch count must show that the path ran it; its
    stage-3 depth and confidence are compared with the port's plain path on
-   the card in bf16 (the gate) and in fp32 (reported);
+   the card in bf16 (the gate) and in fp32 (reported); one fp32 request on
+   the fp32 route (K9 and K2 in fp32, launches checked) is held against the
+   plain fp32 path (the gate);
    one more request runs under ``torch.profiler`` and the device time is
    summed by kernel name;
 4. train: the train step at the JAX package's train bench point (512x640
@@ -31,7 +35,18 @@ Phases, one JSON line each:
    weights (the gate) and the plain fp32 path (reported), and each of that
    step's K5 calls, forward and backward, against the plain versions on its
    own inputs (the gate); one more step runs under ``torch.profiler``;
-5. summary: one ``{"kernels": [...]}`` line, the card line, and last
+5. product: the eval product (``cds_mvsnet_tpu_torch.cli.test_cli.main``)
+   on a synthetic DTU-layout scan written to disk (6 views of a textured
+   plane at 1600x1200, 5 sources each) at the protocol of
+   ``scripts/dtu_eval.sh`` (1152x1536, V=5, D=192, interval scale 1.06,
+   ndepths 48/32/8, refinement, gipuma fusion with disparity 0.1 and 2
+   consistent views), once with ``--compute_dtype auto`` (bf16 on the card:
+   K1-K4) and once with ``fp32`` (K9 and K2 in fp32); each run's launch
+   counts per view, its files, each written depth against an in-process
+   forward on the same batch, the host synchronisations it makes, then the
+   ``normal`` fusion with loose thresholds, ``fuse_view`` on the card
+   against the CPU, and one profiled bf16 run for the device's busy share;
+6. summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Nothing falls back: no GPU
@@ -57,6 +72,15 @@ TRAIN_B, TRAIN_H, TRAIN_W = 2, 512, 640
 TRAIN_STEPS = 3
 TRAIN_TEMPERATURE = 0.01
 
+# the DTU protocol point of scripts/dtu_eval.sh
+DTU_H, DTU_W, DTU_VIEWS, DTU_SRC_H, DTU_SRC_W = 1152, 1536, 6, 1200, 1600
+DTU_INFER_FLAGS = ["--dataset", "dtu", "--interval_scale", "1.06", "--num_view", str(V), "--numdepth", str(D_FULL),
+                   "--max_h", str(DTU_H), "--max_w", str(DTU_W)]
+DTU_FLAGS = [*DTU_INFER_FLAGS, "--filter_method", "gipuma", "--prob_threshold", "0.0,0.0,0.0",
+             "--disp_threshold", "0.1", "--num_consistent", "2"]
+# loose thresholds of the normal filter, so that points exist to compare
+NORMAL_FLAGS = ["--skip_inference", "--filter_method", "normal", "--thres_view", "2", "--thres_disp", "50.0"]
+
 KERNEL_INFO = {
     "warp_entropy": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1342"),
     "conv3d_bn_relu": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
@@ -64,17 +88,28 @@ KERNEL_INFO = {
     "dynconv_branches": ("cds_mvsnet_tpu_torch/csrc/dynconv.cu", "cds_mvsnet_tpu/ops/pallas/s2d_sparse.py:239"),
     "warp_sim": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp_vjp.py:75"),
     "warp_sim_backward": ("cds_mvsnet_tpu_torch/csrc/warp_vjp.cu", "cds_mvsnet_tpu/ops/pallas/warp_vjp.py:92"),
+    "warp_gather": ("cds_mvsnet_tpu_torch/csrc/gather.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1608"),
+    "conv3d_bn_relu_fp32": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
 }
+# kernels whose launches the fp32 product run counts (K2's wrapper serves both routes)
+FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # the kernels' symbols as the profiler names them (csrc/*.cu)
-KERNEL_SYMBOLS = ("void warp_kernel", "conv3d_bn_relu_kernel", "exit_softargmin_kernel",
-                  "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel")
+KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "exit_softargmin_kernel",
+                  "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
 PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
 # launches of one train step: each K5 kernel once per batch element, source
 # view and stage for the sweep, and as often for the GT-depth warp
 PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
+# launches per view of the product: bf16 runs K1-K4, fp32 runs K9 and K2
+PER_VIEW = {
+    "bf16": {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1,
+             "warp_gather": 0, "warp_sim": 0, "warp_sim_backward": 0},
+    "fp32": {"warp_entropy": 0, "conv3d_bn_relu": 3, "exit_softargmin": 0, "dynconv_branches": 0,
+             "warp_gather": 3 * (V - 1), "warp_sim": 0, "warp_sim_backward": 0},
+}
 
 
 def emit(obj) -> None:
@@ -146,7 +181,7 @@ def phase_kernels(torch, batch, train_batch, dev):
     def uniform(shape, lo=-1.0, hi=1.0, dtype=torch.bfloat16):
         return (torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo).to(dtype).contiguous()
 
-    results = {name: [] for name in KERNEL_INFO}
+    results = {name: [] for name in (*KERNEL_INFO, "warp_gather_bf16")}
     failures = []
 
     def record(name, stage, err, tol_desc, ok, ms, plain_ms, lib_ms, bytes_moved, flops, peak, extra=None):
@@ -333,10 +368,91 @@ def phase_kernels(torch, batch, train_batch, dev):
                 "explicit_plain_ms": timed(torch, lambda: K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip, g_sim),
                                            3)})
         del outs, ds_p, dr_p, g_ip
+    protocol_kernels(torch, dev, uniform, record)
     torch.cuda.empty_cache()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return results
+
+
+def protocol_stage_shapes():
+    """(C, D, h, w) of each stage at the DTU protocol point: the cascade runs
+    at half the 1152x1536 input under refinement."""
+    h, w = DTU_H // 2, DTU_W // 2
+    return [(32, NDEPTHS[0], h // 4, w // 4), (16, NDEPTHS[1], h // 2, w // 2), (8, NDEPTHS[2], h, w)]
+
+
+def protocol_kernels(torch, dev, uniform, record):
+    """K9 in fp32 (the fp32 route) and bf16 (its TPU twin ``warp_pallas_v6``),
+    and K2 in fp32, against their plain versions at the protocol point's
+    stage shapes; the coordinates are a plane sweep between two views of a
+    rig with finite epipoles."""
+    import torch.nn.functional as F
+
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+    from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform, sweep_coords
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    rig = textured_plane_batch(V=2, H=DTU_H, W=DTU_W, D=D_FULL, refine=True, tz_step=4.0, seed=SEED)
+    interval = 2.5 * 1.06  # a DTU cam file's interval at --interval_scale 1.06
+    for s, (C, D, h, w) in enumerate(protocol_stage_shapes(), start=1):
+        cams = torch.as_tensor(rig["proj_matrices"][f"stage{s}"], device=dev)
+        rot, trans = relative_warp_transform(cams[:, 0], cams[:, 1])
+        if s == 1:
+            hyp = torch.linspace(425.0, 425.0 + interval * (D_FULL - 1), D, device=dev)
+        else:  # per-pixel windows around a smooth depth map, as refined stages
+            centre = uniform((h, w), 560.0, 640.0, torch.float32)
+            steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
+            hyp = centre[None] + steps[:, None, None] * (4.0 / 2 ** (s - 1)) * interval
+        px, py = sweep_coords(rot, trans, hyp[None], h, w)
+        px, py = px.reshape(D, h, w).contiguous(), py.reshape(D, h, w).contiguous()
+
+        # K9: same corners, fp32 weights and op-by-op sums as the plain
+        # version, one rounding at the store: expected bit for bit
+        for dtype, name in ((torch.float32, "warp_gather"), (torch.bfloat16, "warp_gather_bf16")):
+            src = uniform((h, w, C), dtype=dtype)
+            out = K.warp_gather(src, px, py)
+            torch.cuda.synchronize()
+            want = K.warp_gather_plain(src, px, py)
+            d = (out.float() - want.float()).abs()
+            if dtype == torch.float32:
+                tol, ok = "|d| <= 1e-6 max|src|", float(d.max()) <= 1e-6 * float(src.abs().max())
+                # the library call: NCHW source, grid normalised for align_corners=True
+                src_nchw = src.permute(2, 0, 1)[None].contiguous()
+                grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1], -1).reshape(1, D * h, w, 2)
+                lib_ms = timed(torch, lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                                            align_corners=True), 10)
+                del src_nchw, grid
+            else:  # no PyTorch call samples a bf16 source with fp32 coordinates
+                tol, ok = "|d| <= 2^-7 |plain| (one bf16 ulp)", bool((d <= 2 ** -7 * want.float().abs()).all())
+                lib_ms = None
+            es = src.element_size()
+            record(name, s, float(d.max()), tol, ok,
+                   timed(torch, lambda: K.warp_gather(src, px, py), 10),
+                   timed(torch, lambda: K.warp_gather_plain(src, px, py), 2),
+                   lib_ms, src.numel() * es + 2 * px.numel() * 4 + out.numel() * es, D * h * w * (8 * C + 20),
+                   PEAK_FP32_FLOPS, {"shape": [C, D, h, w], "exact_frac": float((d == 0).float().mean())})
+            del src, out, want, d
+
+        # K2 in fp32: sums of 27·C fp32 terms in another order (TF32 off)
+        vol = uniform((C, D, h, w), dtype=torch.float32)
+        bound_w = (27 * C) ** -0.5
+        wk = uniform((8, C, 3, 3, 3), -bound_w, bound_w, torch.float32)
+        bk = uniform((8,), -0.1, 0.1, torch.float32)
+        vol16 = vol.to(torch.bfloat16)  # the bf16 instantiation at the same shape, timed beside it
+        y_k = K.conv3d_bn_relu(vol, wk, bk)
+        torch.cuda.synchronize()
+        y_p = K.conv3d_bn_relu_plain(vol, wk, bk)
+        terms = F.conv3d(vol.abs()[None], wk.abs(), padding=1)[0] + bk.abs()[:, None, None, None]
+        d = (y_k - y_p).abs()
+        record("conv3d_bn_relu_fp32", s, float(d.max()), "|d| <= 1e-5 sum|terms| + 1e-7",
+               y_k.dtype == torch.float32 and bool((d <= 1e-5 * terms + 1e-7).all()),
+               timed(torch, lambda: K.conv3d_bn_relu(vol, wk, bk), 5),
+               timed(torch, lambda: K.conv3d_bn_relu_plain(vol, wk, bk), 3),
+               timed(torch, lambda: F.conv3d(vol[None], wk, bk, padding=1).relu_(), 5),
+               vol.numel() * 4 + wk.numel() * 4 + 32 + y_k.numel() * 4, 2 * 27 * C * 8 * D * h * w, PEAK_FP32_FLOPS,
+               {"shape": [C, D, h, w], "bf16_ms": timed(torch, lambda: K.conv3d_bn_relu(vol16, wk, bk), 5)})
+        del vol, vol16, y_k, y_p, terms, d, px, py, hyp
 
 
 def quantiles(torch, diff):
@@ -381,38 +497,47 @@ def phase_serve(torch, batch, dev):
             raise RuntimeError(f"stage3 {key}: shape {tuple(t.shape)} or non-finite values")
 
     plain16 = request(compute_dtype=torch.bfloat16, kernels=False)["stage3"]
-    plain32 = request(compute_dtype=torch.float32)["stage3"]
+    plain32 = request(compute_dtype=torch.float32, kernels=False)["stage3"]
+    k0 = {name: k.launches for name, k in all_kernels().items()}
+    route32 = request(compute_dtype=torch.float32)["stage3"]  # FP32_OPS: K9 and K2 in fp32
+    fp32_launches = {name: k.launches - k0[name] for name, k in all_kernels().items() if k.launches != k0[name]}
+    if fp32_launches != {"warp_gather": 3 * (V - 1), "conv3d_bn_relu": 3}:
+        raise RuntimeError(f"the fp32 route launched {fp32_launches}, not K9 12 and K2 3 times")
     interval = float(batch["depth_values"][0, 1] - batch["depth_values"][0, 0])  # stage-3 ratio 1
     cmp = {}
-    for tag, ref in (("bf16", plain16), ("fp32", plain32)):
+    for tag, got, ref in (("bf16", s3, plain16), ("fp32_route", route32, plain32), ("fp32", s3, plain32)):
         for key in ("depth", "photometric_confidence"):
-            med, p99 = quantiles(torch, (s3[key] - ref[key]).abs())
+            med, p99 = quantiles(torch, (got[key] - ref[key]).abs())
             cmp[f"{tag}_{key}_median"] = med
             cmp[f"{tag}_{key}_p99"] = p99
-    # Gate on the same-dtype comparison: the kernel path and the plain path
-    # compute the same function in bf16 and differ only where a kernel's fp32
-    # sums, taken in another order, round to a neighbouring bf16 value; such
-    # flips are rare and the soft-argmin is smooth, so depth stays within a
-    # small fraction of the stage-3 plane interval. The fp32 path differs by
-    # bf16 quantisation of every feature and volume, which is reported only.
+    # Gate on the same-dtype comparisons: the bf16 kernel path against the
+    # plain bf16 path, and the fp32 route (K9, K2 in fp32) against the plain
+    # fp32 path. Each pair computes the same function and differs only where
+    # a kernel's fp32 sums, taken in another order, round differently (to a
+    # neighbouring bf16 value in bf16); such flips are rare and the
+    # soft-argmin is smooth, so depth stays within a small fraction of the
+    # stage-3 plane interval. The bf16 kernel path against the plain fp32
+    # path ("fp32") differs by bf16 quantisation of every feature and volume,
+    # which is reported only.
     gate = {
         "depth_median_max": 0.01 * interval,
         "depth_p99_max": 0.25 * interval,
         "conf_median_max": 1e-3,
         "conf_p99_max": 0.05,
     }
-    ok = (cmp["bf16_depth_median"] <= gate["depth_median_max"]
-          and cmp["bf16_depth_p99"] <= gate["depth_p99_max"]
-          and cmp["bf16_photometric_confidence_median"] <= gate["conf_median_max"]
-          and cmp["bf16_photometric_confidence_p99"] <= gate["conf_p99_max"])
+    ok = all(cmp[f"{tag}_depth_median"] <= gate["depth_median_max"]
+             and cmp[f"{tag}_depth_p99"] <= gate["depth_p99_max"]
+             and cmp[f"{tag}_photometric_confidence_median"] <= gate["conf_median_max"]
+             and cmp[f"{tag}_photometric_confidence_p99"] <= gate["conf_p99_max"]
+             for tag in ("bf16", "fp32_route"))
     emit({
         "phase": "serve", "requests": REQUESTS, "shape": [1, V, H, W, 3], "ndepths": list(NDEPTHS),
         "latency_ms_per_map": lat, "peak_mem_bytes": peak, "launches": launches,
         "depth_interval_mm": interval, "compare": cmp, "gate": gate, "ok": ok,
-        "depth_mean_mm": float(s3["depth"].mean()),
+        "depth_mean_mm": float(s3["depth"].mean()), "fp32_route_launches": fp32_launches,
     })
     if not ok:
-        raise RuntimeError("kernel path disagrees with the plain bf16 path")
+        raise RuntimeError("a kernel route disagrees with the plain path of its dtype")
     phase_profile(torch, model, lambda: request(compute_dtype=torch.bfloat16))
     return launches
 
@@ -640,6 +765,256 @@ def phase_train(torch, batch, dev):
     return launches
 
 
+def write_dtu_scan(root, seed: int = SEED):
+    """A synthetic scan in the DTU test layout under ``root/scan1``: 6 views
+    of a textured plane at 1600x1200 (``images/*.jpg``), their cam files
+    with full-resolution intrinsics and a two-token depth line (425 mm,
+    2.5 mm), and a pair file that gives each view the other 5 as sources."""
+    import os
+
+    import numpy as np
+
+    from cds_mvsnet_tpu_torch.data.image import save_image
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    scan = os.path.join(root, "scan1")
+    for sub in ("images", "cams"):
+        os.makedirs(os.path.join(scan, sub), exist_ok=True)
+    rig = textured_plane_batch(V=DTU_VIEWS, H=DTU_SRC_H, W=DTU_SRC_W, D=D_FULL, tz_step=4.0, seed=seed)
+    cams = rig["proj_matrices"]["stage3"][0]  # full-resolution intrinsics
+    for v in range(DTU_VIEWS):
+        save_image(os.path.join(scan, "images", f"{v:0>8}.jpg"), rig["imgs"][0, v])
+        rows = [" ".join(str(x) for x in row) for row in (*cams[v, 0], *cams[v, 1, :3, :3])]
+        with open(os.path.join(scan, "cams", f"{v:0>8}_cam.txt"), "w") as f:
+            f.write("extrinsic\n" + "\n".join(rows[:4]) + "\n\nintrinsic\n" + "\n".join(rows[4:])
+                    + "\n\n425.0 2.5\n")
+    lines = [str(DTU_VIEWS)]
+    for v in range(DTU_VIEWS):
+        srcs = [u for u in range(DTU_VIEWS) if u != v]
+        lines += [str(v), f"{len(srcs)} " + " ".join(f"{u} {100.0 - abs(u - v):.1f}" for u in srcs)]
+    with open(os.path.join(scan, "pair.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return ["scan1"]
+
+
+def all_kernels():
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    return {k.__name__: k for k in (*K.KERNELS, *K.TRAIN_KERNELS, *K.FP32_KERNELS)}
+
+
+def product_run(torch, argv):
+    """``test_cli.main(argv)`` on the card with every launch count set to 0
+    just before it and read just after, and the host synchronisations it
+    makes (``torch.cuda.set_sync_debug_mode("warn")``) by call site."""
+    import warnings
+
+    from cds_mvsnet_tpu_torch.cli.test_cli import main as cli_main
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            result = cli_main(argv, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{w.filename.split('site-packages/')[-1].split('cds_mvsnet_tpu_torch/')[-1]}:{w.lineno}"
+            syncs[site] = syncs.get(site, 0) + 1
+    return result, launches, syncs, wall
+
+
+def check_written(np, out_dir, views, dmin, dmax):
+    """The files of one inference run: finite depths of the protocol size
+    inside the depth range, stacked confidences, cams and images."""
+    import os
+
+    from cds_mvsnet_tpu_torch.io.pfm import read_pfm
+
+    scan = os.path.join(out_dir, "scan1")
+    problems = []
+    for v in range(views):
+        depth, _ = read_pfm(os.path.join(scan, "depth_est", f"{v:0>8}.pfm"))
+        conf, _ = read_pfm(os.path.join(scan, "confidence", f"{v:0>8}.pfm"))
+        if depth.shape != (DTU_H, DTU_W) or not np.isfinite(depth).all():
+            problems.append(f"depth {v}: shape {depth.shape} or non-finite")
+        elif depth.min() < dmin - 1e-3 or depth.max() > dmax + 1e-3:
+            problems.append(f"depth {v}: [{depth.min()}, {depth.max()}] outside [{dmin}, {dmax}]")
+        if conf.shape != (DTU_H, DTU_W, 3) or not np.isfinite(conf).all():
+            problems.append(f"confidence {v}: shape {conf.shape}")
+        for sub, suffix in (("cams", "_cam.txt"), ("images", ".jpg")):
+            if not os.path.exists(os.path.join(scan, sub, f"{v:0>8}{suffix}")):
+                problems.append(f"{sub} {v} missing")
+    return problems
+
+
+def forward_overlap(torch, model, b, reps: int = 3) -> dict:
+    """Host and device time of one forward, in bf16 and in fp32: the host
+    time until ``forward`` returns (what the next view waits for before it
+    can be queued) and until the card has finished."""
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    out = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        model(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        host, total = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            model(*args, compute_dtype=dtype)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = {"host_ms": host, "total_ms": total}
+    return out
+
+
+def phase_product(torch, dev):
+    """The eval product at the DTU protocol point, bf16 then fp32 (see the
+    module note). Returns the fp32 run's launches of K9 and K2."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.data.eval_set import EvalDataset
+    from cds_mvsnet_tpu_torch.fusion.pipeline import FusionConfig, _load_view, fuse_view
+    from cds_mvsnet_tpu_torch.io.pfm import read_pfm
+    from cds_mvsnet_tpu_torch.models import build_model, to_tensors
+    from cds_mvsnet_tpu_torch.models.convert import save_model
+
+    def batch_of(sample):
+        return to_tensors({k: v[None] if not isinstance(v, dict) else {s: a[None] for s, a in v.items()}
+                           for k, v in sample.items() if k != "filename"}, dev)
+
+    work = tempfile.mkdtemp(prefix="cds_smoke_")
+    try:
+        data = os.path.join(work, "data")
+        scans = write_dtu_scan(data)
+        ckpt = os.path.join(work, "ckpt.npz")
+        cfg = ModelConfig(refine=True, ndepths=NDEPTHS)
+        save_model(ckpt, build_model(cfg, seed=SEED, device=dev))
+        ds = EvalDataset(data, scans, nviews=V, ndepths=D_FULL, interval_scale=1.06, max_h=DTU_H, max_w=DTU_W,
+                         dataset="dtu", refine=True)
+        interval = float(ds[0]["depth_values"][1] - ds[0]["depth_values"][0])  # stage-3 ratio 1
+        dmin, dmax = float(ds[0]["depth_values"][0]), float(ds[0]["depth_values"][-1])
+        runs, ok, problems = {}, True, []
+        for tag, dtype_flag in (("bf16", "auto"), ("fp32", "fp32")):
+            out_dir = os.path.join(work, f"out_{tag}")
+            argv = ["--testpath", data, "--resume", ckpt, "--outdir", out_dir, *DTU_FLAGS,
+                    "--compute_dtype", dtype_flag]
+            result, launches, syncs, wall = product_run(torch, argv)
+            want = {name: n * DTU_VIEWS for name, n in PER_VIEW[tag].items()}
+            found = check_written(np, out_dir, DTU_VIEWS, dmin, dmax)
+            # each written depth against an in-process forward on the same
+            # batch: the serve gate
+            model = build_model(cfg, params=ckpt, device=dev)
+            dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+            med, p99 = [], []
+            for i in range(len(ds)):
+                b = batch_of(ds[i])
+                ref = model(b["imgs"], b["proj_matrices"], b["depth_values"], temperature=0.01,
+                            compute_dtype=dtype)["refined_depth"][0]
+                got = torch.as_tensor(read_pfm(os.path.join(out_dir, "scan1", "depth_est", f"{i:0>8}.pfm"))[0],
+                                      device=dev)
+                m, q = quantiles(torch, (got - ref).abs())
+                med.append(m)
+                p99.append(q)
+            del model
+            torch.cuda.empty_cache()
+            gate = max(med) <= 0.01 * interval and max(p99) <= 0.25 * interval
+            ply = os.path.join(out_dir, "scan1.ply")
+            run_ok = launches == want and not found and gate and os.path.exists(ply)
+            # maps_per_sec is save_depths' batch / median view time; the
+            # sustained rate is 1 / mean_s (views 2-6, whose times tile the run)
+            runs[tag] = {"maps_per_sec": result["inference"]["maps_per_sec"],
+                         "maps_per_sec_sustained": 1.0 / result["inference"]["mean_s"], "stats": result["inference"],
+                         "wall_s": wall, "launches": launches, "launches_expected": want,
+                         "gipuma_points": result["points"]["scan1"], "host_syncs": syncs,
+                         "written_vs_forward_depth_median_mm": med, "written_vs_forward_depth_p99_mm": p99,
+                         "files_ok": not found, "ok": run_ok}
+            problems += [f"{tag}: {p}" for p in found]
+            if launches != want:
+                problems.append(f"{tag}: launches {launches} != {want}")
+            if not gate:
+                problems.append(f"{tag}: written depth vs forward median {max(med)}, p99 {max(p99)} mm")
+            ok &= run_ok
+
+        overlap = forward_overlap(torch, build_model(cfg, params=ckpt, device=dev), batch_of(ds[0]))
+        torch.cuda.empty_cache()
+
+        # the normal filter with loose thresholds on the bf16 maps, and one
+        # view's fuse_view on the card against the CPU
+        out_dir = os.path.join(work, "out_bf16")
+        normal, _, _, normal_wall = product_run(
+            torch, ["--testpath", data, "--resume", ckpt, "--outdir", out_dir, *NORMAL_FLAGS])
+        fcfg = FusionConfig(n_src_views=10, vthresh=2.0, img_dist_thresh=50.0, depth_thresh=0.01)
+        scan_dir = os.path.join(out_dir, "scan1")
+        views = [_load_view(scan_dir, v) for v in range(DTU_VIEWS)]
+        fused = {}
+        for where in (dev, torch.device("cpu")):
+            def t(a):
+                return torch.as_tensor(np.ascontiguousarray(a), device=where)
+
+            pts, mask, depth = fuse_view(t(views[0][0]), t(views[0][1]), t(np.stack([v[0] for v in views[1:]])),
+                                         t(np.stack([v[1] for v in views[1:]])), t(views[0][2]),
+                                         t(np.stack([v[2] for v in views[1:]])), fcfg)
+            fused[where.type] = [x.cpu() for x in (pts, mask, depth)]
+        (pg, mg, dg), (pc, mc, dc) = fused[dev.type], fused["cpu"]
+        # masks come from <, > and >= on fp32 results: a pixel at a threshold
+        # may flip, in the final mask or in a view's mask inside the average
+        flips = float((mg != mc).float().mean())
+        dep_off = float(((dg - dc).abs() > 1e-5 * dc.abs()).float().mean())
+        both = mg & mc
+        pts_off = float((both & ((pg - pc).abs().amax(-1) > 1e-5 * pc.abs().amax(-1))).float().mean())
+        fuse_ok = flips <= 1e-4 and dep_off <= 1e-4 and pts_off <= 1e-4
+        ok &= fuse_ok and normal["points"]["scan1"] > 0
+        if not fuse_ok:
+            problems.append(f"fuse_view card vs CPU: mask flips {flips}, points off {pts_off}, depth off {dep_off}")
+
+        # one more bf16 inference run under the profiler: the device's busy
+        # share of the product's wall time, with the set-up in it
+        prof_dir = os.path.join(work, "out_profile")
+        from cds_mvsnet_tpu_torch.cli.test_cli import main as cli_main
+
+        profiled = {}
+
+        def profiled_run():
+            profiled.update(cli_main(["--testpath", data, "--resume", ckpt, "--outdir", prof_dir, *DTU_INFER_FLAGS,
+                                      "--filter_method", "none"], device="cuda"))
+
+        profile = device_profile(torch, profiled_run)
+        profile["stats"] = profiled["inference"]
+        emit({"phase": "product", "scan": [DTU_VIEWS, DTU_SRC_H, DTU_SRC_W], "shape": [DTU_H, DTU_W],
+              "flags": DTU_FLAGS, "ndepths": list(NDEPTHS), "depth_interval_mm": interval,
+              "depth_range_mm": [dmin, dmax], "runs": runs, "forward_overlap": overlap,
+              "normal": {"flags": NORMAL_FLAGS, "points": normal["points"]["scan1"], "wall_s": normal_wall},
+              "fuse_view_card_vs_cpu": {"mask_flip_frac": flips, "points_off_frac": pts_off,
+                                        "depth_off_frac": dep_off, "kept_frac": float(mc.float().mean())},
+              "gate": {"written_vs_forward_depth_median_max_mm": 0.01 * interval,
+                       "written_vs_forward_depth_p99_max_mm": 0.25 * interval,
+                       "fuse_view": "mask flips, and points or fused depths off by > 1e-5 relative, "
+                                    "each on <= 1e-4 of the pixels"},
+              "problems": problems, "ok": ok})
+        emit({"phase": "product_profile", "compute_dtype": "bf16", "views": DTU_VIEWS, **profile})
+        if not ok:
+            raise RuntimeError(f"product phase failed: {problems}")
+        return {"warp_gather": runs["fp32"]["launches"]["warp_gather"],
+                "conv3d_bn_relu_fp32": runs["fp32"]["launches"]["conv3d_bn_relu"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -668,14 +1043,19 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
     launches.update(phase_train(torch, train_batch, dev))
+    del train_batch
+    torch.cuda.empty_cache()
+    launches.update(phase_product(torch, dev))
 
     kernels = []
-    for name, rows in results.items():
-        source, replaces = KERNEL_INFO[name]
+    for name, source_replaces in KERNEL_INFO.items():
+        source, replaces = source_replaces
+        rows = results[name]
         # per-request totals at the serve shapes: K1 runs V-1 times per
+        # stage; per-map totals at the protocol point: K9 runs V-1 times per
         # stage; per-step totals of the sweeps at the train shapes: K5 runs
         # B·(V-1) times per stage (the GT warps at D=1 are left out)
-        mult = {"warp_entropy": V - 1, "warp_sim": TRAIN_B * (V - 1),
+        mult = {"warp_entropy": V - 1, "warp_gather": V - 1, "warp_sim": TRAIN_B * (V - 1),
                 "warp_sim_backward": TRAIN_B * (V - 1)}.get(name, 1)
         lib = [r["library_ms"] for r in rows]
         kernels.append({
@@ -687,10 +1067,14 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows) * mult,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
             "library_ms": None if None in lib else sum(lib) * mult,
-            "per": "step" if name in TRAIN_KERNEL_NAMES else "request",
+            "per": "step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES else "request",
             "per_stage": [{k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                           for r in rows],
         })
+        if name == "warp_gather":  # the bf16 instantiation, off the main path
+            kernels[-1]["bf16_per_stage"] = [
+                {k: r[k] for k in ("stage", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                for r in results["warp_gather_bf16"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

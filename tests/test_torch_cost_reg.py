@@ -140,8 +140,11 @@ def test_k2_k3_wrappers_check_their_inputs():
     vol = torch.zeros(8, 4, 8, 8, dtype=torch.bfloat16)
     w = torch.zeros(8, 8, 3, 3, 3)
     b = torch.zeros(8)
-    with pytest.raises(ValueError, match="bf16"):
-        conv3d_bn_relu(vol.float(), w, b)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        conv3d_bn_relu(vol.half(), w, b)
+    # both eval routes: the output keeps the volume's dtype
+    assert conv3d_bn_relu(vol.float(), w, b).dtype == torch.float32
+    assert conv3d_bn_relu(vol, w, b).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="w "):
         conv3d_bn_relu(vol, torch.zeros(4, 8, 3, 3, 3), b)
     with pytest.raises(ValueError, match="shared memory"):

@@ -163,6 +163,53 @@ def test_fused_warp_train_gradients_match_plain_autograd(gen, C):
         assert float((got - want).norm() / want.norm()) <= 1e-2
 
 
+def gather_rig(gen, C, dtype):
+    """K9's inputs: a source smaller than the output grid in one axis and
+    larger in the other, coordinates that leave the image, the ``-1e6``
+    padding of ``warp_pallas_padded`` in the last columns, and z near 0:
+    huge and non-finite coordinates."""
+    H, W, D, h, w = 23, 41, 5, 19, 37
+    src = uniform(gen, (H, W, C), dtype=dtype)
+    px = uniform(gen, (D, h, w), -3.0, W + 2.0, torch.float32)
+    py = uniform(gen, (D, h, w), -3.0, H + 2.0, torch.float32)
+    px[:, :, -3:] = -1e6
+    py[:, :, -3:] = -1e6
+    px[0, 0, :4] = torch.tensor([1e30, -1e30, float("inf"), float("nan")])
+    py[0, 1, :4] = torch.tensor([3e9, float("-inf"), float("nan"), 0.0])
+    px[1, 2, :3] = torch.tensor([0.0, W - 1.0, W - 1.0 + 2 ** -10])  # on the edges
+    return src, px.contiguous(), py.contiguous()
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_gather_matches_plain(gen, C, dtype):
+    src, px, py = gather_rig(gen, C, dtype)
+    before = K.warp_gather.launches
+    out = K.warp_gather(src, px, py)
+    torch.cuda.synchronize()
+    assert K.warp_gather.launches == before + 1
+    want = K.warp_gather_plain(src, px, py)
+    # same corners, same fp32 weights, the same op-by-op sum, one rounding:
+    # equal bit for bit
+    assert out.dtype == dtype
+    assert torch.equal(out, want)
+    assert bool((out[:, :, :, -3:] == 0).all())
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_conv3d_bn_relu_fp32_matches_plain(gen, C):
+    vol = uniform(gen, (C, 5, 11, 45), dtype=torch.float32)
+    w = uniform(gen, (8, C, 3, 3, 3), -(27 * C) ** -0.5, (27 * C) ** -0.5, torch.float32)
+    b = uniform(gen, (8,), -0.1, 0.1, torch.float32)
+    got = K.conv3d_bn_relu(vol, w, b)
+    assert got.dtype == torch.float32
+    want = K.conv3d_bn_relu_plain(vol, w, b)
+    # fp32 sums of 27·C terms in another order (TF32 off): 1e-5 of the sum of
+    # |terms| behind each output
+    terms = torch.nn.functional.conv3d(vol.abs()[None], w.abs(), padding=1)[0] + b.abs()[:, None, None, None]
+    assert bool(((got - want).abs() <= 1e-5 * terms + 1e-7).all())
+
+
 def test_fused_warp_train_raises_rather_than_fall_back(gen):
     src, ref, depth, rt = warp_rig(gen, 8, False)
     with pytest.raises(ValueError, match="bf16"):
@@ -180,7 +227,39 @@ def test_fused_warp_train_raises_rather_than_fall_back(gen):
 def test_wrappers_raise_rather_than_fall_back(gen):
     vol = uniform(gen, (8, 4, 6, 6), dtype=torch.float32)
     w = uniform(gen, (8, 8, 3, 3, 3), dtype=torch.float32)
-    with pytest.raises(ValueError, match="bf16"):
-        K.conv3d_bn_relu(vol, w, torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        K.conv3d_bn_relu(vol.half(), w, torch.zeros(8, device="cuda"))
     with pytest.raises(ValueError, match="devices"):
         K.conv3d_bn_relu(vol.bfloat16(), w.cpu(), torch.zeros(8))
+    src = uniform(gen, (6, 7, 8), dtype=torch.float32)
+    px = torch.zeros(2, 3, 4, device="cuda")
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        K.warp_gather(src.half(), px, px)
+    with pytest.raises(ValueError, match="devices"):
+        K.warp_gather(src, px.cpu(), px)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eval_forward_makes_no_host_sync(gen, dtype):
+    """After its warm-up a forward queues its work without waiting for the
+    card, as ``save_depths`` needs to queue the next view before the last
+    one's outputs cross to the host; the epipoles of F = 0 included."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import build_model, to_tensors
+    from cds_mvsnet_tpu_torch.ops.geometry import epipole_from_fundamental
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    model = build_model(ModelConfig(refine=True, ndepths=(8, 8, 8)), seed=0, device="cuda")
+    b = to_tensors(textured_plane_batch(V=3, H=64, W=64, D=16, refine=True), "cuda")
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    zero = torch.zeros(2, 3, 3, device="cuda")
+    model(*args, compute_dtype=dtype)  # warm-up: the resize index tensors are cached per shape
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model(*args, compute_dtype=dtype)
+        epi = epipole_from_fundamental(zero)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out["refined_depth"]).all())
+    assert torch.equal(epi, torch.zeros_like(epi))

@@ -121,6 +121,12 @@ def test_epipole_det_eps_switch(det_eps):
     direct = tgeo.epipole_from_fundamental(Ft)
     # SVD vs 2x2 solve of the same fp32 F: agree to 1e-2 relative
     np.testing.assert_allclose(N(et), N(direct), rtol=1e-2, atol=1e-1)
+    # F = 0 (one camera centre): both fall back to the null vector [0, 0, 1],
+    # so the epipole is finite, (0, 0), in both packages
+    zero = np.zeros((2, 3, 3), np.float32)
+    ez = N(tgeo.epipole_from_fundamental(T(zero), det_eps=det_eps))
+    np.testing.assert_array_equal(ez, N(jgeo.epipole_from_fundamental(jnp.asarray(zero), det_eps=det_eps)))
+    np.testing.assert_array_equal(ez, np.zeros((2, 2), np.float32))
 
 
 @pytest.mark.parametrize("per_pixel", [False, True])
