@@ -31,6 +31,12 @@ its device:
   (``stage_net.py:544``) and the dense FeatureNet;
 - training in bf16: K5 (``fused_warp_train``); in fp32 the plain warp.
 ``kernels=False`` runs every site's plain version (``PLAIN_OPS``).
+
+A :class:`~.warp_routes.Routes` (``forward(..., routes=...)``) picks each
+stage's warp and the cost-reg front among the JAX package's routes
+(``CDS_WARP_ROUTE``, ``CDS_COSTREG_FRONT``): K6, K7 and K8 run only there.
+The JAX package routes bf16 features (``stage_net.py:422-439``), so routes
+take bf16 and the kernels; ``routes=None`` is ``KERNEL_OPS`` as above.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from .feature_net import FEATURE_OUT_CHANNELS, FeatureNet
 from .layers import StatsCollector, reset_parameters
 from .refinement import RefineNet
 from .stage_net import FP32_OPS, KERNEL_OPS, PLAIN_OPS, StageNet, stage_net, stage_net_train
+from .warp_routes import Routes
 
 __all__ = ["CDSMVSNet", "build_model", "feat_target", "pairwise_epipoles", "resolve_device", "strict_fp32",
            "to_tensors"]
@@ -100,10 +107,13 @@ class CDSMVSNet(nn.Module):
 
     @torch.no_grad()
     def forward(self, imgs, proj_matrices, depth_values, temperature: float = 0.001,
-                compute_dtype=torch.float32, kernels: bool = True):
+                compute_dtype=torch.float32, kernels: bool = True, routes: Routes | None = None):
         """Eval: every BN on its running statistics. The kernel sites run
         ``KERNEL_OPS`` in bf16, ``FP32_OPS`` in fp32, ``PLAIN_OPS`` without
-        ``kernels``."""
+        ``kernels``; ``routes`` (bf16 with ``kernels`` only) picks each
+        stage's warp and the cost-reg front."""
+        if routes is not None and not (kernels and compute_dtype == torch.bfloat16):
+            raise ValueError("routes take bf16 and kernels=True, as the JAX package routes bf16 features")
         if not kernels:
             ops = PLAIN_OPS
         elif compute_dtype == torch.bfloat16:
@@ -112,7 +122,7 @@ class CDSMVSNet(nn.Module):
             ops = FP32_OPS
         else:
             raise ValueError(f"compute_dtype {compute_dtype}: bf16 or fp32")
-        return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=ops)
+        return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=ops, routes=routes)
 
     def forward_train(self, imgs, proj_matrices, depth_values, gt_depths, stats: StatsCollector,
                       temperature: float = 0.01, compute_dtype=torch.float32, kernels: bool = True,
@@ -149,7 +159,7 @@ class CDSMVSNet(nn.Module):
         return feats
 
     def _cascade(self, imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=PLAIN_OPS,
-                 warp=None, stats=None, gt_depths=None, remat_features=False):
+                 warp=None, stats=None, gt_depths=None, remat_features=False, routes=None):
         cfg = self.cfg
         B, V, H, W, _ = imgs.shape
         height, width = (H // 2, W // 2) if cfg.refine else (H, W)
@@ -196,7 +206,8 @@ class CDSMVSNet(nn.Module):
             vis_head = self.stage_net.vis[str(s)]
             cams = proj_matrices[name].float()
             if stats is None:
-                out = stage_net(vis_head, cost_reg, features, cams, hyp, ops)
+                route = () if routes is None else (routes.stage(s + 1), routes.front)
+                out = stage_net(vis_head, cost_reg, features, cams, hyp, ops, *route)
             else:
                 gt = None if gt_depths is None else gt_depths[name].float()
                 out = stage_net_train(vis_head, cost_reg, features, cams, hyp, warp, stats, gt)

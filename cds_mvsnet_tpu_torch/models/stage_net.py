@@ -12,7 +12,12 @@ and the softmax/regression tail.
 - :func:`stage_net`, eval: per batch element, through one of three
   :class:`Ops`: ``KERNEL_OPS`` (bf16: K1 warps, K2 runs the UNet's conv0 and
   K3, ``ops/kernels/regress.py``, the exit), ``FP32_OPS`` (fp32: K9 gathers,
-  :func:`warp_entropy_gather`, and K2 runs conv0) or ``PLAIN_OPS``.
+  :func:`warp_entropy_gather`, and K2 runs conv0) or ``PLAIN_OPS``. A warp
+  route and a cost-reg front (``models/warp_routes.py``, the JAX package's
+  ``_stage_net_pallas`` dispatch at :332-509) put other kernels in the
+  warp's and conv0's place: :func:`route_warp`, and for ``v6sb``/``v6sball``
+  with V > 2 one K8 launch over all source views, the vis head over all of
+  them and ``volume_sum = Σ_v in_prod·vis`` in one sum (:339-398).
 - :func:`stage_net_train`, train (``train=True`` there): the warp is K5
   (``ops/kernels/warp_vjp.py``) or its plain version, launched per batch
   element and source view, once over the hypotheses and once at the GT depth
@@ -24,6 +29,7 @@ and the softmax/regression tail.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -34,9 +40,10 @@ from ..ops.geometry import relative_warp_transform, sweep_coords
 from ..ops.sampling import confidence_regression, depth_regression, softmax_entropy
 from .cost_reg import CostRegNet
 from .layers import ConvBnReLU2d, conv2d
+from .warp_routes import BATCHED_ROUTES, WARP_ROUTES, parse_route
 
-__all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "warp_entropy_gather", "KERNEL_OPS",
-           "FP32_OPS", "PLAIN_OPS"]
+__all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "warp_entropy_gather", "route_warp",
+           "KERNEL_OPS", "FP32_OPS", "PLAIN_OPS"]
 
 
 @dataclass(frozen=True)
@@ -50,20 +57,62 @@ class Ops:
     dynconv: object
 
 
-def warp_entropy_gather(src, ref, depth, rt):
-    """The fp32 route's warp, ``warp_entropy``'s contract: source-pixel
-    coordinates from ``plane_sweep_coords``'s arithmetic, K9's gather, then
-    ``in_prod = ref ⊙ warped``, ``sim = Σ_C in_prod`` and the entropy of
-    ``softmax_D(sim)`` in plain PyTorch, as the JAX package's fp32 route
-    (``stage_net.py:405``, ``:480-507``). It runs K9 at every stage; the JAX
-    package's C ≤ 8 crossover (``:412-427``) was measured on its TPU."""
+def stage_coords(ref, depth, rt):
+    """``(px, py)``, each ``(D, h, w)`` fp32: ``plane_sweep_coords``'
+    arithmetic from the pair's 12 scalars ``rt``, as the JAX package feeds its
+    px/py kernels (``stage_net.py:405``)."""
     C, h, w = ref.shape
     D = depth.shape[0]
     px, py = sweep_coords(rt[:9].reshape(1, 3, 3), rt[9:].reshape(1, 3, 1), depth[None], h, w)
-    warped = K.warp_gather(src, px.reshape(D, h, w), py.reshape(D, h, w))  # (C, D, h, w)
+    return px.reshape(D, h, w), py.reshape(D, h, w)
+
+
+def warp_entropy_gather(src, ref, depth, rt, gather=K.warp_gather):
+    """The fp32 route's warp, ``warp_entropy``'s contract: source-pixel
+    coordinates from :func:`stage_coords`, K9's gather, then ``in_prod = ref
+    ⊙ warped``, ``sim = Σ_C f32(warped)·f32(ref)`` and the entropy of
+    ``softmax_D(sim)`` in plain PyTorch, as the JAX package's unfused routes
+    (``stage_net.py:405``, ``:480-507``). It runs K9 at every stage; the JAX
+    package's C ≤ 8 crossover (``:412-427``) was measured on its TPU. The
+    bf16 routes ``v6``/``v3`` run it too, and ``xla`` with the plain
+    ``gather``."""
+    warped = gather(src, *stage_coords(ref, depth, rt))  # (C, D, h, w)
     in_prod = ref[:, None] * warped
-    entropy = softmax_entropy(in_prod.float().sum(0)[None], dim=1)[0, 0]
-    return in_prod, entropy
+    sim = (warped.float() * ref.float()[:, None]).sum(0)
+    return in_prod, softmax_entropy(sim[None], dim=1)[0, 0]
+
+
+def _sim_entropy(warp):
+    """A warp that returns ``(in_prod, sim)`` as one that returns ``(in_prod,
+    entropy of softmax_D(sim))``."""
+
+    def run(src, ref, depth, rt):
+        in_prod, sim = warp(src, ref, depth, rt)
+        return in_prod, softmax_entropy(sim[None], dim=1)[0, 0]
+
+    return run
+
+
+def _coords_warp(src, ref, depth, rt):
+    return K.warp_sim_coords(src, ref, *stage_coords(ref, depth, rt))
+
+
+def route_warp(route: str | None, ops: "Ops"):
+    """The per-view warp ``(src, ref, depth, rt) -> (in_prod, entropy)`` of
+    a warp route (``models/warp_routes.py``); ``None`` is ``ops.warp``. The
+    batched routes, where they run per view (V = 2), are K8 per view, as the
+    JAX package's ``v6sb`` falls to ``v6s`` there."""
+    if route is None:
+        return ops.warp
+    entry = WARP_ROUTES[parse_route(route, WARP_ROUTES)]
+    return {
+        "warp_entropy": K.warp_entropy,
+        "warp_sim": _sim_entropy(K.warp_sim),
+        "warp_sim_coords": _sim_entropy(_coords_warp),
+        "warp_sim_coords_batched": _sim_entropy(_coords_warp),
+        "warp_gather": functools.partial(warp_entropy_gather, gather=K.warp_gather),
+        "warp_gather_plain": functools.partial(warp_entropy_gather, gather=K.warp_gather_plain),
+    }[entry]
 
 
 KERNEL_OPS = Ops(K.warp_entropy, K.conv3d_bn_relu, K.exit_softargmin, K.dynconv_branches)
@@ -94,7 +143,46 @@ class StageNet(nn.Module):
         self.vis = nn.ModuleDict({str(s): VisHead() for s in range(num_stages)})
 
 
-def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, ops: Ops):
+def _view_volume(vis_head, warp, features, cams, hyp, b):
+    """``(volume_sum, vis_sum)`` of batch element ``b``, view by view:
+    ``volume_sum += in_prod·vis``."""
+    volume_sum = vis_sum = None
+    for v in range(1, cams.shape[1]):
+        ref_feat, _, ref_nc = features[v - 1]["ref"]
+        src_feat = features[v - 1]["src"][0]
+        rot, trans = relative_warp_transform(cams[b : b + 1, 0], cams[b : b + 1, v])
+        rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+        in_prod, entropy = warp(src_feat[b].permute(1, 2, 0).contiguous(), ref_feat[b].contiguous(), hyp, rt)
+        x = torch.stack([entropy.to(ref_nc.dtype), ref_nc[b]])[None]
+        vis = vis_head(x)[0, 0]  # (h, w)
+        term = in_prod * vis
+        volume_sum = term if volume_sum is None else volume_sum + term
+        vis_sum = vis if vis_sum is None else vis_sum + vis
+    return volume_sum, vis_sum
+
+
+def _batched_volume(vis_head, features, cams, hyp, b):
+    """``(volume_sum, vis_sum)`` of batch element ``b`` from one K8 launch over
+    all V−1 source views (routes ``v6sb``/``v6sball``)."""
+    V = cams.shape[1]
+    srcs, refs, pxs, pys = [], [], [], []
+    for v in range(1, V):
+        ref = features[v - 1]["ref"][0][b].contiguous()
+        rot, trans = relative_warp_transform(cams[b : b + 1, 0], cams[b : b + 1, v])
+        px, py = stage_coords(ref, hyp, torch.cat([rot.reshape(9), trans.reshape(3)]).float())
+        srcs.append(features[v - 1]["src"][0][b].permute(1, 2, 0))
+        refs.append(ref)
+        pxs.append(px)
+        pys.append(py)
+    in_prod, sim = K.warp_sim_coords_batched(*(torch.stack(t).contiguous() for t in (srcs, refs, pxs, pys)))
+    entropy = softmax_entropy(sim, dim=1)[:, 0]  # (V-1, h, w)
+    ref_nc = torch.stack([features[v - 1]["ref"][2][b] for v in range(1, V)])
+    vis = vis_head(torch.stack([entropy.to(ref_nc.dtype), ref_nc], 1))[:, 0]  # (V-1, h, w)
+    return (in_prod * vis[:, None, None]).sum(0), vis.sum(0)
+
+
+def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, ops: Ops,
+              warp_route: str | None = None, front: str = "pallas"):
     """Run one stage.
 
     Args:
@@ -102,29 +190,23 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
         with ``feat (B, C, h, w)`` and ``nc_sum, nc (B, h, w)``.
       cams: ``(B, V, 2, 4, 4)`` stage cameras, view 0 the reference.
       depth_values: ``(B, D)`` planes or ``(B, D, h, w)`` hypotheses, fp32.
+      warp_route: a warp route of ``models/warp_routes.py``, or ``None`` for
+        ``ops.warp``.
+      front: the cost-regularisation front (``CostRegNet.front``).
     Returns:
       ``{"depth", "photometric_confidence", "norm_curv"}``, each ``(B, h, w)``.
     """
     B, V = cams.shape[:2]
+    warp = route_warp(warp_route, ops)
     depths, confs = [], []
     for b in range(B):
         hyp = depth_values[b].float().contiguous()
-        volume_sum = vis_sum = None
-        for v in range(1, V):
-            ref_feat, _, ref_nc = features[v - 1]["ref"]
-            src_feat = features[v - 1]["src"][0]
-            rot, trans = relative_warp_transform(cams[b : b + 1, 0], cams[b : b + 1, v])
-            rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
-            in_prod, entropy = ops.warp(
-                src_feat[b].permute(1, 2, 0).contiguous(), ref_feat[b].contiguous(), hyp, rt
-            )
-            x = torch.stack([entropy.to(ref_nc.dtype), ref_nc[b]])[None]
-            vis = vis_head(x)[0, 0]  # (h, w)
-            term = in_prod * vis
-            volume_sum = term if volume_sum is None else volume_sum + term
-            vis_sum = vis if vis_sum is None else vis_sum + vis
+        if warp_route in BATCHED_ROUTES and V > 2:
+            volume_sum, vis_sum = _batched_volume(vis_head, features, cams, hyp, b)
+        else:
+            volume_sum, vis_sum = _view_volume(vis_head, warp, features, cams, hyp, b)
         volume_mean = volume_sum / (vis_sum + 1e-6)  # (C, D, h, w)
-        y = cost_reg(volume_mean, ops.conv0)
+        y = cost_reg(volume_mean, ops.conv0, front)
         depth, conf = ops.exit(y, cost_reg.prob.weight.float().contiguous(), hyp)
         depths.append(depth)
         confs.append(conf)

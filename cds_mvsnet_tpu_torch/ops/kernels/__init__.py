@@ -6,11 +6,18 @@ function, and the wrapper's launch count (``<wrapper>.launches``, a plain
 int that grows by one per launch and nowhere else).
 """
 
-from .conv3d import conv3d_bn_relu, conv3d_bn_relu_plain, fold_bn_into_conv3d
+from .conv3d import conv3d_bn_relu, conv3d_bn_relu_plain, conv3d_down, conv3d_down_plain, fold_bn_into_conv3d
+from .conv3d_fused import conv3d_front_fused, conv3d_front_fused_plain
 from .gather import warp_gather, warp_gather_plain
 from .dynconv import dynconv_branches, dynconv_branches_plain
 from .regress import exit_softargmin, exit_softargmin_plain
 from .warp import warp_entropy, warp_entropy_plain
+from .warp_coords import (
+    warp_sim_coords,
+    warp_sim_coords_batched,
+    warp_sim_coords_batched_plain,
+    warp_sim_coords_plain,
+)
 from .warp_vjp import (
     FusedWarpTrain,
     fused_warp_train,
@@ -20,20 +27,28 @@ from .warp_vjp import (
     warp_sim_plain,
 )
 
-# the eval cascade's kernels (bf16 route), the train step's, and the fp32
-# eval route's (K2 serves both eval routes)
+# the eval cascade's kernels (bf16 route), the train step's, the fp32 eval
+# route's (K2 serves both eval routes), and those only the explicit routes
+# of models/warp_routes.py run (K6, K7, K8; the routes also run K2, K5's
+# forward and K9)
 KERNELS = (warp_entropy, conv3d_bn_relu, exit_softargmin, dynconv_branches)
 TRAIN_KERNELS = (warp_sim, warp_sim_backward)
 FP32_KERNELS = (warp_gather, conv3d_bn_relu)
+ROUTE_KERNELS = (conv3d_front_fused, conv3d_down, warp_sim_coords, warp_sim_coords_batched)
 
 __all__ = [
     "KERNELS",
     "TRAIN_KERNELS",
     "FP32_KERNELS",
+    "ROUTE_KERNELS",
     "FusedWarpTrain",
     "fused_warp_train",
     "conv3d_bn_relu",
     "conv3d_bn_relu_plain",
+    "conv3d_down",
+    "conv3d_down_plain",
+    "conv3d_front_fused",
+    "conv3d_front_fused_plain",
     "dynconv_branches",
     "dynconv_branches_plain",
     "exit_softargmin",
@@ -46,5 +61,9 @@ __all__ = [
     "warp_sim",
     "warp_sim_backward",
     "warp_sim_backward_plain",
+    "warp_sim_coords",
+    "warp_sim_coords_batched",
+    "warp_sim_coords_batched_plain",
+    "warp_sim_coords_plain",
     "warp_sim_plain",
 ]

@@ -1,22 +1,31 @@
-"""K2: cost-regularisation conv0, ``relu(conv3d_3x3x3(vol) + b)`` with eval
-BatchNorm folded into ``(w, b)``, on a bf16 volume (the bf16 route) or an
-fp32 one (the fp32 route); the output has the volume's dtype.
+"""K2 and K7: ``relu(conv3d_3x3x3(vol) + b)`` with eval BatchNorm folded into
+``(w, b)``, padding 1, 8 or 16 output channels, on a bf16 volume (the bf16
+route) or an fp32 one (the fp32 route); the output has the volume's dtype.
 
-Replaces ``cds_mvsnet_tpu/ops/pallas/conv3d.py::conv3d_front`` (:159, body
-``_conv3d_kernel`` :68). Kernel source: ``csrc/conv3d.cu``.
+- :func:`conv3d_bn_relu` (K2), stride 1: cost-regularisation conv0 (O = 8)
+  and, under the ``pallas3``/``pallasf3`` fronts, conv2 (16 -> 16 at half
+  resolution). Replaces ``cds_mvsnet_tpu/ops/pallas/conv3d.py::conv3d_front``
+  (:159, body ``_conv3d_kernel`` :68).
+- :func:`conv3d_down` (K7), stride 2: conv1 (8 -> 16) under the
+  ``pallas2``/``pallas3`` fronts. Replaces ``conv3d.py::conv3d_down`` (:490,
+  the same body at ``stride=2``); D, h and w must be even.
 
-Bound on the H100: memory, at the bf16 tensor-core rate. It reads the
+Kernel source: ``csrc/conv3d.cu``, one body templated on the dtype, O and
+the stride.
+
+Bound on the H100: memory, at the bf16 tensor-core rate. K2 reads the
 ``(C, D, h, w)`` volume and writes ``(8, D, h, w)``: about 239 / 382 / 255 MB
 per launch at stages 1/2/3 of the 1152x864 main path (71 / 114 / 76 µs at
 3.35 TB/s) for 41 / 55 / 28 GFLOP. Design, first and simple: one thread per
-output voxel computes all 8 outputs with fp32 FMAs; the 27·C·8 folded
-weights (27 KB at C=32) sit in shared memory in ``[c][tap][o]`` order, so the
-8 weights of a tap are one broadcast read; neighbouring threads read
-neighbouring voxels along w, and the 27-fold reuse of each input voxel is left
-to the L1 cache. The CUDA cores' fp32 rate, not memory, limits this version;
-a ``wgmma`` form over shared-memory tiles is later work. The TPU kernel's
-three pre-shifted volume copies and 8-row DMA windows are Mosaic mechanics and
-are not carried over. The fp32 instantiation is the same body on fp32
+output voxel computes all O outputs with fp32 FMAs; the 27·C·O folded
+weights (at most 27 KB) sit in shared memory in ``[c][tap][o]`` order, so the
+O weights of a tap are one broadcast read; neighbouring threads read
+neighbouring voxels along w (every other one at stride 2), and the 27-fold
+reuse of each input voxel is left to the L1 cache. The CUDA cores' fp32
+rate, not memory, limits this version; a ``wgmma`` form over shared-memory
+tiles is later work. The TPU kernel's three pre-shifted volume copies (at
+stride 2 the lane de-interleave) and 8-row DMA windows are Mosaic mechanics
+and are not carried over. The fp32 instantiation is the same body on fp32
 loads and stores (twice the bytes). The TPU kernel rounds an fp32 volume to
 bf16 for its matrix unit (``conv3d.py:186-187,198``); that is an input
 format of the TPU, not the function, so the port's fp32 route stays fp32.
@@ -30,9 +39,9 @@ import torch.nn.functional as F
 from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 
-__all__ = ["conv3d_bn_relu", "conv3d_bn_relu_plain", "fold_bn_into_conv3d"]
+__all__ = ["conv3d_bn_relu", "conv3d_bn_relu_plain", "conv3d_down", "conv3d_down_plain", "fold_bn_into_conv3d"]
 
-O = 8
+OUT_CHANNELS = (8, 16)
 
 
 def fold_bn_into_conv3d(weight, bn_weight, bn_bias, running_mean, running_var, eps: float = 1e-5):
@@ -44,33 +53,66 @@ def fold_bn_into_conv3d(weight, bn_weight, bn_bias, running_mean, running_var, e
     return w.contiguous(), b.contiguous()
 
 
-def conv3d_bn_relu_plain(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def conv3d_bn_relu_plain(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Plain version: fp32 conv of the volume, bias, ReLU, back to its dtype."""
-    y = F.conv3d(vol.float()[None], w.float(), padding=1)[0] + b.float()[:, None, None, None]
+    y = F.conv3d(vol.float()[None], w.float(), stride=stride, padding=1)[0] + b.float()[:, None, None, None]
     return torch.relu(y).to(vol.dtype)
 
 
-def conv3d_bn_relu(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``vol (C, D, h, w)`` bf16 or fp32 -> ``(8, D, h, w)`` in vol's dtype;
-    ``w (8, C, 3, 3, 3)`` and ``b (8,)`` fp32 with BN folded
-    (:func:`fold_bn_into_conv3d`)."""
-    require(vol.ndim == 4, f"conv3d_bn_relu: vol {tuple(vol.shape)}")
+def conv3d_down_plain(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`conv3d_down`."""
+    return conv3d_bn_relu_plain(vol, w, b, stride=2)
+
+
+def check_conv(name: str, vol, w, b, out_channels=OUT_CHANNELS) -> None:
+    """The argument contract of K2, K7 and each of K6's two convs."""
+    require(vol.ndim == 4, f"{name}: vol {tuple(vol.shape)}")
+    C = vol.shape[0]
+    O = w.shape[0] if w.ndim == 5 else -1
+    require(O in out_channels and tuple(w.shape) == (O, C, 3, 3, 3),
+            f"{name}: w {tuple(w.shape)} for C={C} (O in {out_channels})")
+    require(tuple(b.shape) == (O,), f"{name}: b {tuple(b.shape)}")
+    require(C * 27 * O * 4 <= 48 * 1024, f"{name}: C={C}, O={O} weights exceed shared memory")
+    require(vol.dtype in (torch.bfloat16, torch.float32), f"{name}: vol must be bf16 or fp32")
+    require(w.dtype == b.dtype == torch.float32, f"{name}: w and b must be fp32")
+    require(all(t.is_contiguous() for t in (vol, w, b)), f"{name}: inputs must be contiguous")
+
+
+def _launch(name: str, fn_name: str, vol, w, b, stride: int) -> torch.Tensor:
     C, D, h, wd = vol.shape
-    require(tuple(w.shape) == (O, C, 3, 3, 3), f"conv3d_bn_relu: w {tuple(w.shape)} for C={C}")
-    require(tuple(b.shape) == (O,), f"conv3d_bn_relu: b {tuple(b.shape)}")
-    require(C * 27 * O * 4 <= 48 * 1024, f"conv3d_bn_relu: C={C} weights exceed shared memory")
-    require(vol.dtype in (torch.bfloat16, torch.float32), "conv3d_bn_relu: vol must be bf16 or fp32")
-    require(w.dtype == b.dtype == torch.float32, "conv3d_bn_relu: w and b must be fp32")
-    require(all(t.is_contiguous() for t in (vol, w, b)), "conv3d_bn_relu: inputs must be contiguous")
+    O = w.shape[0]
+    out = torch.empty((O, (D - 1) // stride + 1, (h - 1) // stride + 1, (wd - 1) // stride + 1),
+                      dtype=vol.dtype, device=vol.device)
+    lib, fn = entry("conv3d", fn_name, [P, P, P, P, I, I, I, I, I, I, P])
+    err = fn(ptr(vol), ptr(w), ptr(b), ptr(out), int(vol.dtype == torch.float32), O, C, D, h, wd,
+             stream(vol.device))
+    _build.check(lib, err, name)
+    return out
+
+
+def conv3d_bn_relu(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K2: ``vol (C, D, h, w)`` bf16 or fp32 -> ``(O, D, h, w)`` in vol's
+    dtype, O in 8/16; ``w (O, C, 3, 3, 3)`` and ``b (O,)`` fp32 with BN folded
+    (:func:`fold_bn_into_conv3d`)."""
+    check_conv("conv3d_bn_relu", vol, w, b)
     if not on_card("conv3d_bn_relu", vol, w, b):
         return conv3d_bn_relu_plain(vol, w, b)
-    out = torch.empty((O, D, h, wd), dtype=vol.dtype, device=vol.device)
-    name = "conv3d_bn_relu_f32_launch" if vol.dtype == torch.float32 else "conv3d_bn_relu_launch"
-    lib, fn = entry("conv3d", name, [P, P, P, P, I, I, I, I, P])
-    err = fn(ptr(vol), ptr(w), ptr(b), ptr(out), C, D, h, wd, stream(vol.device))
-    _build.check(lib, err, "conv3d_bn_relu")
+    out = _launch("conv3d_bn_relu", "conv3d_bn_relu_launch", vol, w, b, 1)
     conv3d_bn_relu.launches += 1
     return out
 
 
+def conv3d_down(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K7: :func:`conv3d_bn_relu` at stride 2, ``(C, D, h, w) -> (O, D/2,
+    h/2, w/2)``; D, h and w even."""
+    check_conv("conv3d_down", vol, w, b)
+    require(all(n % 2 == 0 for n in vol.shape[1:]), f"conv3d_down: D, h, w {tuple(vol.shape[1:])} must be even")
+    if not on_card("conv3d_down", vol, w, b):
+        return conv3d_down_plain(vol, w, b)
+    out = _launch("conv3d_down", "conv3d_down_launch", vol, w, b, 2)
+    conv3d_down.launches += 1
+    return out
+
+
 conv3d_bn_relu.launches = 0
+conv3d_down.launches = 0

@@ -16,7 +16,9 @@ Phases, one JSON line each:
    K9 (fp32 and bf16) and K2 in fp32 at the three stage shapes of the DTU
    protocol point (the cascade at 576x768 under refinement);
    K5's forward and backward are checked the same way at the three stage
-   shapes of the train point (per batch element);
+   shapes of the train point (per batch element); K6, K7, K2 at 16 output
+   channels and K8 (per view and over the 4 source views in one launch),
+   which only the explicit routes run, at the serve shapes;
 3. serve: the eval cascade with seeded random weights answers 3 requests at
    1152x864; every kernel's launch count must show that the path ran it; its
    stage-3 depth and confidence are compared with the port's plain path on
@@ -25,6 +27,12 @@ Phases, one JSON line each:
    plain fp32 path (the gate);
    one more request runs under ``torch.profiler`` and the device time is
    summed by kernel name;
+   routes: four bf16 requests under the JAX package's warp routes and
+   cost-reg fronts (``models/warp_routes.py``: R1-R4 of ``ROUTED``), each
+   with its launch counts checked exactly, its stage-3 depth and
+   confidence held to the serve gate against the default route on the same
+   weights and batch, and its latency beside the default's; one R1 request
+   runs under ``torch.profiler``;
 4. train: the train step at the JAX package's train bench point (512x640
    DTU crops, B=2, V=5, D=192, ndepths 48/32/8, refinement, bf16, FeatureNet
    recomputed in the backward, SGD lr 0.01 and weight decay 0.01,
@@ -90,13 +98,19 @@ KERNEL_INFO = {
     "warp_sim_backward": ("cds_mvsnet_tpu_torch/csrc/warp_vjp.cu", "cds_mvsnet_tpu/ops/pallas/warp_vjp.py:92"),
     "warp_gather": ("cds_mvsnet_tpu_torch/csrc/gather.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1608"),
     "conv3d_bn_relu_fp32": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
+    "conv3d_front_fused": ("cds_mvsnet_tpu_torch/csrc/conv3d_fused.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:392"),
+    "conv3d_down": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:490"),
+    "conv3d_bn_relu_o16": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
+    "warp_sim_coords": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1451"),
+    "warp_sim_coords_batched": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:431"),
 }
 # kernels whose launches the fp32 product run counts (K2's wrapper serves both routes)
 FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # the kernels' symbols as the profiler names them (csrc/*.cu)
 KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "exit_softargmin_kernel",
-                  "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel")
+                  "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel",
+                  "void conv3d_fused_kernel", "void warp_coords_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
 PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
@@ -104,12 +118,35 @@ PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmi
 # view and stage for the sweep, and as often for the GT-depth warp
 PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
 # launches per view of the product: bf16 runs K1-K4, fp32 runs K9 and K2
+NO_ROUTE_KERNELS = {"conv3d_front_fused": 0, "conv3d_down": 0, "warp_sim_coords": 0, "warp_sim_coords_batched": 0}
 PER_VIEW = {
     "bf16": {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1,
-             "warp_gather": 0, "warp_sim": 0, "warp_sim_backward": 0},
+             "warp_gather": 0, "warp_sim": 0, "warp_sim_backward": 0, **NO_ROUTE_KERNELS},
     "fp32": {"warp_entropy": 0, "conv3d_bn_relu": 3, "exit_softargmin": 0, "dynconv_branches": 0,
-             "warp_gather": 3 * (V - 1), "warp_sim": 0, "warp_sim_backward": 0},
+             "warp_gather": 3 * (V - 1), "warp_sim": 0, "warp_sim_backward": 0, **NO_ROUTE_KERNELS},
 }
+# the routed requests of the routes phase: (warp route per stage, front) and
+# the launches of one request at B=1 (every kernel not named: 0). K6, K7 and
+# K2's O=16 conv2 run once per stage; K8 once per source view and stage, or
+# once per stage over all V-1 views (v6sb)
+ROUTED = {
+    "R1": ({1: "v6s", 2: "v6sd", 3: "v6sc"}, "pallasf3",
+           {"conv3d_front_fused": 3, "conv3d_bn_relu": 3, "warp_sim_coords": 3 * (V - 1), "exit_softargmin": 3,
+            "dynconv_branches": 1}),
+    "R2": ({1: "v6sb", 2: "v6sb", 3: "v6sb"}, "pallas3",
+           {"conv3d_bn_relu": 6, "conv3d_down": 3, "warp_sim_coords_batched": 3, "exit_softargmin": 3,
+            "dynconv_branches": 1}),
+    "R3": ({1: "v7m", 2: "v7m", 3: "v7m"}, "pallas2",
+           {"conv3d_bn_relu": 3, "conv3d_down": 3, "warp_sim": 3 * (V - 1), "exit_softargmin": 3,
+            "dynconv_branches": 1}),
+    "R4": ({1: "v6", 2: "v6", 3: "v6"}, "pallasf",
+           {"conv3d_front_fused": 3, "warp_gather": 3 * (V - 1), "exit_softargmin": 3, "dynconv_branches": 1}),
+}
+# which routed request's counts each route-only kernel reports in the
+# kernels line (conv3d_bn_relu_o16: R1, whose K2 launches are all conv2's)
+ROUTE_LAUNCHES = {"conv3d_front_fused": ("R1", "conv3d_front_fused"), "conv3d_bn_relu_o16": ("R1", "conv3d_bn_relu"),
+                  "warp_sim_coords": ("R1", "warp_sim_coords"), "conv3d_down": ("R2", "conv3d_down"),
+                  "warp_sim_coords_batched": ("R2", "warp_sim_coords_batched")}
 
 
 def emit(obj) -> None:
@@ -208,6 +245,7 @@ def phase_kernels(torch, batch, train_batch, dev):
             centre = uniform((h, w), 560.0, 640.0, torch.float32)
             steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
             hyp = (centre[None] + steps[:, None, None] * ratio * interval).contiguous()
+        route_kernels(torch, batch, uniform, record, s, (C, D, h, w), hyp)
 
         # K1: tanh-range features; channels-last source
         src = uniform((h, w, C))
@@ -373,6 +411,107 @@ def phase_kernels(torch, batch, train_batch, dev):
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return results
+
+
+def route_kernels(torch, batch, uniform, record, s, shape, hyp):
+    """The kernels only the explicit routes run, at stage ``s``'s serve
+    shape: K8 per view and over the V-1 source views in one launch (the
+    plane sweep of ``hyp`` to each source view of the serve batch), then K6
+    on the mean volume's shape, K7 on conv0's and K2 at O=16 on conv2's."""
+    import torch.nn.functional as F
+
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+    from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform, sweep_coords
+
+    C, D, h, w = shape
+    cams = batch["proj_matrices"][f"stage{s}"]
+    views = []
+    for v in range(1, V):
+        rot, trans = relative_warp_transform(cams[:, 0], cams[:, v])
+        px, py = sweep_coords(rot, trans, hyp[None], h, w)
+        views.append((uniform((h, w, C)), uniform((C, h, w)), px.reshape(D, h, w).contiguous(),
+                      py.reshape(D, h, w).contiguous()))
+    one = views[0]
+    ip_k, sim_k = K.warp_sim_coords(*one)
+    torch.cuda.synchronize()
+    ip_p, sim_p = K.warp_sim_coords_plain(*one)
+    # the same corners, weights, op-by-op sums and product as the plain
+    # version: in_prod bit for bit; sim sums C fp32 products in another order
+    d_sim = (sim_k - sim_p).abs()
+    ok = torch.equal(ip_k, ip_p) and bool((d_sim <= 1e-5 * ip_p.float().abs().sum(0) + 1e-30).all())
+    view_bytes = (one[0].numel() + one[1].numel()) * 2 + 2 * one[2].numel() * 4 + ip_k.numel() * 2 + sim_k.numel() * 4
+    view_flops = D * h * w * (11 * C + 20)
+    record("warp_sim_coords", s, float((ip_k.float() - ip_p.float()).abs().max()),
+           "in_prod bit for bit; sim |d| <= 1e-5 sum_C|in_prod|", ok,
+           timed(torch, lambda: K.warp_sim_coords(*one), 10), timed(torch, lambda: K.warp_sim_coords_plain(*one), 2),
+           None, view_bytes, view_flops, PEAK_FP32_FLOPS,
+           {"shape": [C, D, h, w], "sim_max_abs_err": float(d_sim.max()),
+            "sim_max_rel_err": float((d_sim / (ip_p.float().abs().sum(0) + 1e-30)).max())})
+    del ip_k, ip_p, sim_k, sim_p, d_sim
+    stacked = [torch.stack(t).contiguous() for t in zip(*views)]
+    ip_b, sim_b = K.warp_sim_coords_batched(*stacked)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i in range(V - 1):  # the same body as the per-view launch: bit for bit
+        ip_v, sim_v = K.warp_sim_coords(*views[i])
+        err = max(err, float((ip_b[i].float() - ip_v.float()).abs().max()), float((sim_b[i] - sim_v).abs().max()))
+    del ip_b, sim_b, ip_v, sim_v
+    record("warp_sim_coords_batched", s, err, f"bit for bit against {V - 1} per-view launches", err == 0.0,
+           timed(torch, lambda: K.warp_sim_coords_batched(*stacked), 5),
+           timed(torch, lambda: K.warp_sim_coords_batched_plain(*stacked), 1),
+           None, (V - 1) * view_bytes, (V - 1) * view_flops, PEAK_FP32_FLOPS, {"shape": [V - 1, C, D, h, w]})
+    del views, stacked, one
+
+    def weights(o, c):
+        bound_w = (27 * c) ** -0.5
+        return uniform((o, c, 3, 3, 3), -bound_w, bound_w, torch.float32), uniform((o,), -0.1, 0.1, torch.float32)
+
+    def one_ulp(got, want):
+        d = (got.float() - want.float()).abs()
+        return float(d.max()), bool((d <= 2 ** -7 * want.float().abs() + 1e-3).all())
+
+    def bf(wb):
+        return [t.to(torch.bfloat16) for t in wb]
+
+    # K6: out0 against K2's plain version, out1 against K7's plain version
+    # on the kernel's own out0 (a flipped ulp of out0 does not propagate)
+    vol = uniform((C, D, h, w))
+    wb0, wb1 = weights(8, C), weights(16, 8)
+    o0, o1 = K.conv3d_front_fused(vol, *wb0, *wb1)
+    torch.cuda.synchronize()
+    e0, ok0 = one_ulp(o0, K.conv3d_bn_relu_plain(vol, *wb0))
+    e1, ok1 = one_ulp(o1, K.conv3d_down_plain(o0, *wb1))
+    same_as_k2_k7 = torch.equal(o0, K.conv3d_bn_relu(vol, *wb0)) and torch.equal(o1, K.conv3d_down(o0, *wb1))
+    lw0, lw1 = bf(wb0), bf(wb1)
+    Do, ho, wo = D // 2, h // 2, w // 2
+    record("conv3d_front_fused", s, max(e0, e1), "out0 vs K2's plain, out1 vs K7's plain on out0: "
+           "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok0 and ok1,
+           timed(torch, lambda: K.conv3d_front_fused(vol, *wb0, *wb1), 5),
+           timed(torch, lambda: K.conv3d_front_fused_plain(vol, *wb0, *wb1), 2),
+           timed(torch, lambda: F.conv3d(F.conv3d(vol[None], *lw0, padding=1).relu_(), *lw1, stride=2,
+                                         padding=1).relu_(), 5),
+           (vol.numel() + o0.numel() + o1.numel()) * 2 + sum(t.numel() * 4 for t in (*wb0, *wb1)),
+           2 * 27 * C * 8 * D * h * w + 2 * 27 * 8 * 16 * Do * ho * wo, PEAK_BF16_FLOPS,
+           {"shape": [C, D, h, w], "out0_max_abs_err": e0, "out1_max_abs_err": e1,
+            "equal_to_k2_then_k7": same_as_k2_k7,
+            "library": "two calls: F.conv3d+ReLU (conv0), then F.conv3d stride 2+ReLU (conv1)"})
+    del vol, o0, o1
+
+    # K7 on conv0's shape, K2 at O=16 on conv2's
+    for name, x, wb, stride in (("conv3d_down", uniform((8, D, h, w)), weights(16, 8), 2),
+                                ("conv3d_bn_relu_o16", uniform((16, Do, ho, wo)), weights(16, 16), 1)):
+        fn = K.conv3d_down if stride == 2 else K.conv3d_bn_relu
+        plain = K.conv3d_down_plain if stride == 2 else K.conv3d_bn_relu_plain
+        y = fn(x, *wb)
+        torch.cuda.synchronize()
+        err, ok = one_ulp(y, plain(x, *wb))
+        lw = bf(wb)
+        record(name, s, err, "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok,
+               timed(torch, lambda: fn(x, *wb), 5), timed(torch, lambda: plain(x, *wb), 3),
+               timed(torch, lambda: F.conv3d(x[None], *lw, stride=stride, padding=1).relu_(), 5),
+               (x.numel() + y.numel()) * 2 + sum(t.numel() * 4 for t in wb),
+               2 * 27 * x.shape[0] * 16 * y[0].numel(), PEAK_BF16_FLOPS, {"shape": list(x.shape)})
+        del x, y
 
 
 def protocol_stage_shapes():
@@ -542,11 +681,51 @@ def phase_serve(torch, batch, dev):
     return launches
 
 
+def hooked_layers(model):
+    """``(name, module)`` of the FeatureNet's blocks and, per stage, the vis
+    head and the cost-reg UNet."""
+    named = [(f"feature.{n}", m) for n, m in model.feature.named_children()]
+    named += [(f"vis.stage{int(s) + 1}", m) for s, m in model.stage_net.vis.items()]
+    return named + [(f"cost_reg.stage{int(s) + 1}", m) for s, m in model.cost_regularization.items()]
+
+
+def kernel_by_layer(torch, model, request, pattern: str) -> dict:
+    """Device ms and calls of the kernels whose name holds ``pattern``, by
+    layer of :func:`hooked_layers`: one request per layer, with
+    ``torch.profiler`` running only inside that layer's forward calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    found = {}
+    for name, mod in hooked_layers(model):
+        profs = []
+
+        def pre(m, args):
+            torch.cuda.synchronize()
+            profs.append(profile(activities=[ProfilerActivity.CUDA]))
+            profs[-1].start()
+
+        def post(m, args, out):
+            torch.cuda.synchronize()
+            profs[-1].stop()
+
+        handles = [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+        try:
+            request()
+        finally:
+            for h in handles:
+                h.remove()
+        hits = [(evt.self_device_time_total / 1e3, evt.count) for p in profs for evt in p.key_averages()
+                if evt.device_type == DeviceType.CUDA and pattern in evt.key]
+        if hits:
+            found[name] = {"ms": sum(h[0] for h in hits), "calls": sum(h[1] for h in hits)}
+    return found
+
+
 def layer_times(torch, model, request) -> dict:
-    """Device ms of each layer over one request, between CUDA events that
-    forward hooks record: the FeatureNet's blocks, and per stage the vis head
-    (all views) and the cost-reg UNet. The rest of a request is the
-    epipoles, hypotheses, K1 and K3."""
+    """Device ms of each layer of :func:`hooked_layers` over one request,
+    between CUDA events that forward hooks record. The rest of a request is
+    the epipoles, hypotheses, K1 and K3."""
     spans, handles = {}, []
 
     def hooks(name):
@@ -562,10 +741,7 @@ def layer_times(torch, model, request) -> dict:
 
         return pre, post
 
-    named = [(f"feature.{n}", m) for n, m in model.feature.named_children()]
-    named += [(f"vis.stage{int(s) + 1}", m) for s, m in model.stage_net.vis.items()]
-    named += [(f"cost_reg.stage{int(s) + 1}", m) for s, m in model.cost_regularization.items()]
-    for name, mod in named:
+    for name, mod in hooked_layers(model):
         pre, post = hooks(name)
         handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
     try:
@@ -611,11 +787,76 @@ def device_profile(torch, run, top: int = 15) -> dict:
     }
 
 
+SGEMM = "precomputed_convolve_sgemm"  # the largest cuDNN kernel of a request (PERF.md)
+
+
 def phase_profile(torch, model, request):
     """Where one request's device time goes: :func:`device_profile` over one
-    more bf16 request (after the launch counts were read), then the device
-    time of each layer over one more request (:func:`layer_times`)."""
-    emit({"phase": "profile", **device_profile(torch, request), "layers_ms": layer_times(torch, model, request)})
+    more bf16 request (after the launch counts were read), the device time
+    of each layer over one more request (:func:`layer_times`), and the
+    layers that run cuDNN's ``SGEMM`` kernel (:func:`kernel_by_layer`)."""
+    emit({"phase": "profile", **device_profile(torch, request), "layers_ms": layer_times(torch, model, request),
+          "sgemm_by_layer": kernel_by_layer(torch, model, request, SGEMM)})
+
+
+def phase_routes(torch, batch, dev):
+    """R1-R4 of ``ROUTED`` at the serve point: each after a warm-up with
+    every launch count set to 0, REQUESTS timed requests whose launches must
+    be exactly the route's; stage 3 held to the serve gate against the
+    default route's request (same weights, batch and dtype); one R1 request
+    profiled. Returns the route-only kernels' launches (``ROUTE_LAUNCHES``)."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model
+
+    model = build_model(ModelConfig(refine=False, ndepths=NDEPTHS), seed=SEED, device=dev)
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    kernels = all_kernels()
+
+    def request(routes):
+        out = model(*args, compute_dtype=torch.bfloat16, routes=routes)
+        torch.cuda.synchronize()
+        return out
+
+    def timed_requests(routes):
+        request(routes)  # warm-up: cuDNN plans, the allocator
+        for k in kernels.values():
+            k.launches = 0
+        lat = []
+        for _ in range(REQUESTS):
+            t0 = time.perf_counter()
+            out = request(routes)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return out["stage3"], lat, {name: k.launches for name, k in kernels.items()}
+
+    ref, ref_lat, _ = timed_requests(None)
+    interval = float(batch["depth_values"][0, 1] - batch["depth_values"][0, 0])
+    gate = {"depth_median_max": 0.01 * interval, "depth_p99_max": 0.25 * interval, "conf_median_max": 1e-3,
+            "conf_p99_max": 0.05}
+    rows, counts, problems = {}, {}, []
+    for tag, (warp, front, per_request) in ROUTED.items():
+        s3, lat, launches = timed_requests(Routes(warp, front))
+        want = {name: per_request.get(name, 0) * REQUESTS for name in kernels}
+        cmp = {}
+        for key in ("depth", "photometric_confidence"):
+            cmp[f"{key}_median"], cmp[f"{key}_p99"] = quantiles(torch, (s3[key] - ref[key]).abs())
+        finite = all(tuple(s3[k].shape) == (1, H, W) and bool(torch.isfinite(s3[k]).all())
+                     for k in ("depth", "photometric_confidence"))
+        in_gate = (cmp["depth_median"] <= gate["depth_median_max"] and cmp["depth_p99"] <= gate["depth_p99_max"]
+                   and cmp["photometric_confidence_median"] <= gate["conf_median_max"]
+                   and cmp["photometric_confidence_p99"] <= gate["conf_p99_max"])
+        rows[tag] = {"warp": warp, "front": front, "latency_ms_per_map": lat, "launches": launches,
+                     "launches_expected": want, "compare_to_default": cmp,
+                     "ok": launches == want and finite and in_gate}
+        counts[tag] = launches
+        if not rows[tag]["ok"]:
+            problems.append(f"{tag}: launches {launches == want}, finite {finite}, gate {in_gate}")
+    emit({"phase": "routes", "requests": REQUESTS, "depth_interval_mm": interval,
+          "default_latency_ms_per_map": ref_lat, "routed": rows, "gate": gate, "ok": not problems})
+    r1 = Routes(*ROUTED["R1"][:2])
+    emit({"phase": "routes_profile", "route": "R1", **device_profile(torch, lambda: request(r1))})
+    if problems:
+        raise RuntimeError(f"routes phase failed: {problems}")
+    return {name: counts[tag][kname] for name, (tag, kname) in ROUTE_LAUNCHES.items()}
 
 
 def rel_l2(torch, got, want) -> float:
@@ -800,7 +1041,7 @@ def write_dtu_scan(root, seed: int = SEED):
 def all_kernels():
     from cds_mvsnet_tpu_torch.ops import kernels as K
 
-    return {k.__name__: k for k in (*K.KERNELS, *K.TRAIN_KERNELS, *K.FP32_KERNELS)}
+    return {k.__name__: k for k in (*K.KERNELS, *K.TRAIN_KERNELS, *K.FP32_KERNELS, *K.ROUTE_KERNELS)}
 
 
 def product_run(torch, argv):
@@ -1040,6 +1281,7 @@ def main() -> int:
                                              with_gt=True, seed=SEED), "cuda")
     results = phase_kernels(torch, batch, train_batch, dev)
     launches = phase_serve(torch, batch, dev)
+    launches.update(phase_routes(torch, batch, dev))
     del batch
     torch.cuda.empty_cache()
     launches.update(phase_train(torch, train_batch, dev))
@@ -1056,7 +1298,7 @@ def main() -> int:
         # stage; per-step totals of the sweeps at the train shapes: K5 runs
         # B·(V-1) times per stage (the GT warps at D=1 are left out)
         mult = {"warp_entropy": V - 1, "warp_gather": V - 1, "warp_sim": TRAIN_B * (V - 1),
-                "warp_sim_backward": TRAIN_B * (V - 1)}.get(name, 1)
+                "warp_sim_backward": TRAIN_B * (V - 1), "warp_sim_coords": V - 1}.get(name, 1)
         lib = [r["library_ms"] for r in rows]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

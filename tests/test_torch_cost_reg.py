@@ -52,7 +52,7 @@ def test_fold_bn_matches_jax():
     wj, bj = fold_bn_into_conv3d(p["conv0"]["conv"], p["conv0"]["bn"])
     net = CostRegNet(16, 8)
     load_module(net, p, "cost_regularization.0")
-    wt, bt = net.folded_conv0()
+    wt, bt = net.folded("conv0")
     np.testing.assert_allclose(N(wt), np.transpose(N(wj), (4, 3, 0, 1, 2)), rtol=1e-6)  # same fp32 ops
     np.testing.assert_allclose(N(bt), N(bj), rtol=1e-6, atol=1e-7)
 

@@ -263,3 +263,141 @@ def test_eval_forward_makes_no_host_sync(gen, dtype):
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(out["refined_depth"]).all())
     assert torch.equal(epi, torch.zeros_like(epi))
+
+
+def conv_rig(gen, C, O, dtype, shape=(6, 10, 46)):
+    vol = uniform(gen, (C, *shape), dtype=dtype)
+    w = uniform(gen, (O, C, 3, 3, 3), -(27 * C) ** -0.5, (27 * C) ** -0.5, torch.float32)
+    return vol, w, uniform(gen, (O,), -0.1, 0.1, torch.float32)
+
+
+def conv_close(got, want, vol, w, b, stride=1):
+    """bf16: one ulp of the result; fp32: 1e-5 of the sum of |terms|."""
+    assert got.dtype == want.dtype == vol.dtype and got.shape == want.shape
+    if vol.dtype == torch.bfloat16:
+        return within_one_ulp(got, want)
+    terms = torch.nn.functional.conv3d(vol.abs()[None], w.abs(), stride=stride, padding=1)[0]
+    return bool(((got - want).abs() <= 1e-5 * (terms + b.abs()[:, None, None, None]) + 1e-7).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_bn_relu_o16_matches_plain(gen, dtype):
+    """K2 at 16 output channels: conv2 of the ``3`` fronts (16 -> 16)."""
+    vol, w, b = conv_rig(gen, 16, 16, dtype)
+    before = K.conv3d_bn_relu.launches
+    got = K.conv3d_bn_relu(vol, w, b)
+    torch.cuda.synchronize()
+    assert K.conv3d_bn_relu.launches == before + 1
+    assert conv_close(got, K.conv3d_bn_relu_plain(vol, w, b), vol, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,O", [(8, 16), (16, 8)])
+def test_conv3d_down_matches_plain(gen, dtype, C, O):
+    vol, w, b = conv_rig(gen, C, O, dtype)
+    before = K.conv3d_down.launches
+    got = K.conv3d_down(vol, w, b)
+    torch.cuda.synchronize()
+    assert K.conv3d_down.launches == before + 1
+    assert tuple(got.shape) == (O, 3, 5, 23)
+    assert conv_close(got, K.conv3d_down_plain(vol, w, b), vol, w, b, stride=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,shape", [(8, (6, 10, 46)), (32, (10, 18, 70))])
+def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
+    """K6 on shapes no tile divides: out0 against K2's plain version, out1
+    against K7's plain version on the kernel's own out0 (so a flipped ulp of
+    out0 does not propagate); and K6 computes exactly what K2 and K7 do, so
+    every voxel of out0 is stored once, by the block that owns it."""
+    vol, w0, b0 = conv_rig(gen, C, 8, dtype, shape)
+    w1 = uniform(gen, (16, 8, 3, 3, 3), -(27 * 8) ** -0.5, (27 * 8) ** -0.5, torch.float32)
+    b1 = uniform(gen, (16,), -0.1, 0.1, torch.float32)
+    before = K.conv3d_front_fused.launches
+    out0, out1 = K.conv3d_front_fused(vol, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    assert K.conv3d_front_fused.launches == before + 1
+    assert conv_close(out0, K.conv3d_bn_relu_plain(vol, w0, b0), vol, w0, b0)
+    assert conv_close(out1, K.conv3d_down_plain(out0, w1, b1), out0, w1, b1, stride=2)
+    assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0)) and torch.equal(out1, K.conv3d_down(out0, w1, b1))
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_warp_sim_coords_matches_plain(gen, C):
+    """K8 per view on K9's coordinates (off the image, on its edges, the
+    ``-1e6`` padding, huge and non-finite): in_prod bit for bit (the same
+    corners, weights and op-by-op sums as K9's plain version, the same
+    product), sim to 1e-5 of its sum of |terms| (C products summed in
+    another order)."""
+    src, px, py = gather_rig(gen, C, torch.bfloat16)
+    ref = uniform(gen, (C, *px.shape[1:]))
+    before = K.warp_sim_coords.launches
+    ip, sim = K.warp_sim_coords(src, ref, px, py)
+    torch.cuda.synchronize()
+    assert K.warp_sim_coords.launches == before + 1
+    ip_p, sim_p = K.warp_sim_coords_plain(src, ref, px, py)
+    assert ip.dtype == torch.bfloat16 and sim.dtype == torch.float32
+    assert torch.equal(ip, ip_p)
+    assert bool(((sim - sim_p).abs() <= 1e-5 * ip_p.float().abs().sum(0) + 1e-30).all())
+    assert bool((ip[:, :, :, -3:] == 0).all()) and bool((sim[:, :, -3:] == 0).all())
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_warp_sim_coords_batched_matches_per_view(gen, C):
+    rigs = [gather_rig(gen, C, torch.bfloat16) for _ in range(4)]
+    src = torch.stack([r[0] for r in rigs])
+    px, py = torch.stack([r[1] for r in rigs]), torch.stack([r[2] for r in rigs])
+    ref = uniform(gen, (4, C, *px.shape[2:]))
+    before = K.warp_sim_coords_batched.launches
+    ip, sim = K.warp_sim_coords_batched(src, ref, px, py)
+    torch.cuda.synchronize()
+    assert K.warp_sim_coords_batched.launches == before + 1
+    for v in range(4):  # the same body, view by view: bit for bit
+        ip_v, sim_v = K.warp_sim_coords(src[v], ref[v], px[v], py[v])
+        assert torch.equal(ip[v], ip_v) and torch.equal(sim[v], sim_v)
+    ip_p, _ = K.warp_sim_coords_batched_plain(src, ref, px, py)
+    assert torch.equal(ip, ip_p)
+
+
+def test_route_wrappers_raise_rather_than_fall_back(gen):
+    vol, w0, b0 = conv_rig(gen, 8, 8, torch.bfloat16)
+    w16, b16 = conv_rig(gen, 8, 16, torch.bfloat16)[1:]
+    for bad in ((8, 5, 10, 46), (8, 6, 9, 46), (8, 6, 10, 45)):  # odd D, h or w
+        with pytest.raises(ValueError, match="even"):
+            K.conv3d_down(uniform(gen, bad), w16, b16)
+        with pytest.raises(ValueError, match="even"):
+            K.conv3d_front_fused(uniform(gen, bad), w0, b0, w16, b16)
+    with pytest.raises(ValueError, match="devices"):
+        K.conv3d_down(vol, w16.cpu(), b16.cpu())
+    src, px, py = gather_rig(gen, 8, torch.bfloat16)
+    src12 = uniform(gen, (*src.shape[:2], 12))
+    with pytest.raises(ValueError, match="C in"):
+        K.warp_sim_coords(src12, uniform(gen, (12, *px.shape[1:])), px, py)
+    with pytest.raises(ValueError, match="C in"):
+        K.warp_sim_coords_batched(src12[None], uniform(gen, (1, 12, *px.shape[1:])), px[None], py[None])
+    with pytest.raises(ValueError, match="devices"):
+        K.warp_sim_coords(src, uniform(gen, (8, *px.shape[1:])), px.cpu(), py.cpu())
+
+
+def test_routed_forward_makes_no_host_sync(gen):
+    """A forward under the routes that run K6, K2 at O = 16, K8 (per view and
+    batched) and K5's forward queues its work without waiting for the card."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model, to_tensors
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    model = build_model(ModelConfig(refine=True, ndepths=(8, 8, 8)), seed=0, device="cuda")
+    b = to_tensors(textured_plane_batch(V=3, H=64, W=64, D=16, refine=True), "cuda")
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    routes = Routes({1: "v6s", 2: "v6sb", 3: "v7m"}, front="pallasf3")
+    model(*args, compute_dtype=torch.bfloat16, routes=routes)  # warm-up
+    torch.cuda.synchronize()
+    counts = [k.launches for k in (K.conv3d_front_fused, K.warp_sim_coords, K.warp_sim_coords_batched, K.warp_sim)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model(*args, compute_dtype=torch.bfloat16, routes=routes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out["refined_depth"]).all())
+    after = [k.launches for k in (K.conv3d_front_fused, K.warp_sim_coords, K.warp_sim_coords_batched, K.warp_sim)]
+    assert [a - c for a, c in zip(after, counts)] == [3, 2, 1, 2]
