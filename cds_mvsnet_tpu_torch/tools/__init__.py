@@ -1,1 +1,5 @@
-"""Measurement scripts of the port, each run on the card as ``python -m cds_mvsnet_tpu_torch.tools.<name>``."""
+"""Scripts of the port, each run as ``python -m cds_mvsnet_tpu_torch.tools.<name>``:
+measurements on the card (``time_warp``, ``time_epipole``), the probes'
+entry points (``probe_lane_slice``, P1; ``probe_gather16``, P2; on the card
+unless ``main(device="cpu")``), and the COLMAP converter (``colmap2mvs``,
+host only)."""

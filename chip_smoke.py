@@ -18,7 +18,13 @@ Phases, one JSON line each:
    K5's forward and backward are checked the same way at the three stage
    shapes of the train point (per batch element); K6, K7, K2 at 16 output
    channels and K8 (per view and over the 4 source views in one launch),
-   which only the explicit routes run, at the serve shapes;
+   which only the explicit routes run, at the serve shapes; K1-K4 again at
+   the stream point's shapes (C/D/h x w = 32/128/120x160, 16/32/240x320,
+   8/8/480x640, K4 on 8 frames at 480x640); P1 and P2, the probes' kernels,
+   at their probes' inputs (and P1 on a 192 KB band), bit for bit;
+   probes: the probes' entry points (``cds_mvsnet_tpu_torch.tools.
+   probe_lane_slice`` and ``probe_gather16``), the path of P1 and P2, with
+   their launches;
 3. serve: the eval cascade with seeded random weights answers 3 requests at
    1152x864; every kernel's launch count must show that the path ran it; its
    stage-3 depth and confidence are compared with the port's plain path on
@@ -54,8 +60,19 @@ Phases, one JSON line each:
    forward on the same batch, the host synchronisations it makes, then the
    ``normal`` fusion with loose thresholds, ``fuse_view`` on the card
    against the CPU, and one profiled bf16 run for the device's busy share;
-6. summary: one ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. stream: ``eval/streaming.py`` at its defaults (480x640, window 5, 512
+   planes split 128/32/8, temperature 0.01, seeded random weights) on a
+   12-view ``sphere_scene`` pushed in order, depth range 425-937 from the
+   scene, bf16 (K1-K4) and fp32 (K9, K2): 4 pushes return None and 8 return
+   maps, each push's launches exactly PER_PUSH, each map held to the serve
+   gate against the plain path of its dtype on the same window; then the
+   latency of each push, frames/s, peak memory, depth error against the
+   scene's exact depth (reported) and one profiled push;
+7. custom: the custom-scene path (COLMAP workspace -> ``data/colmap.py`` ->
+   ``test_cli --dataset general`` at 864x1152 in bf16 -> normal fusion ->
+   ``score_points`` and ``eval_depth_map`` against the scene's geometry);
+8. summary: one ``{"kernels": [...]}`` line (K1-K9, P1 and P2), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Nothing falls back: no GPU
 means exit code 2 before any work.
@@ -89,6 +106,23 @@ DTU_FLAGS = [*DTU_INFER_FLAGS, "--filter_method", "gipuma", "--prob_threshold", 
 # loose thresholds of the normal filter, so that points exist to compare
 NORMAL_FLAGS = ["--skip_inference", "--filter_method", "normal", "--thres_view", "2", "--thres_disp", "50.0"]
 
+# the stream point: eval/streaming.py's StreamingConfig defaults (480x640,
+# window 5, 512 planes split 128/32/8, bf16, temperature 0.01) apart from the
+# depth range, which is the 12-view sphere_scene's (425-937)
+STREAM_H, STREAM_W, STREAM_WINDOW, STREAM_VIEWS, STREAM_PLANES = 480, 640, 5, 12, 512
+STREAM_NDEPTHS = (128, 32, 8)
+# the custom-scene point: a sphere_scene written as a COLMAP workspace,
+# converted, then test_cli --dataset general at 864x1152 without refinement
+# (stage 1 at 108x144 would not halve three times at half resolution)
+CUSTOM_VIEWS, CUSTOM_H, CUSTOM_W = 5, 864, 1152
+# points of each cloud that score_points sees (every k-th point): with the
+# random weights' maps far from the surface, its nearest-neighbour search
+# over the full clouds (5M points each) takes minutes
+SCORE_POINTS = 100_000
+CUSTOM_FLAGS = ["--dataset", "general", "--numdepth", str(D_FULL), "--max_h", str(CUSTOM_H), "--max_w", str(CUSTOM_W),
+                "--num_view", str(V), "--no_refinement", "--filter_method", "normal", "--thres_view", "2",
+                "--thres_disp", "50.0"]
+
 KERNEL_INFO = {
     "warp_entropy": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1342"),
     "conv3d_bn_relu": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
@@ -103,14 +137,23 @@ KERNEL_INFO = {
     "conv3d_bn_relu_o16": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "warp_sim_coords": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1451"),
     "warp_sim_coords_batched": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:431"),
+    "lane_slice_sum": ("cds_mvsnet_tpu_torch/csrc/lane_slice.cu", "tools/probe_lane_slice.py:44"),
+    "row_gather": ("cds_mvsnet_tpu_torch/csrc/gather16.cu", "tools/probe_gather16.py:81"),
+    "int16_arith": ("cds_mvsnet_tpu_torch/csrc/gather16.cu", "tools/probe_gather16.py:93"),
 }
+# the probes' kernels, which only their entry points run
+# (cds_mvsnet_tpu_torch/tools/probe_*.py), and their launches in one run of
+# each entry point's main
+PER_PROBE_RUN = {"lane_slice_sum": 1, "row_gather": 3, "int16_arith": 1}
+PROBE_NAMES = tuple(PER_PROBE_RUN)
 # kernels whose launches the fp32 product run counts (K2's wrapper serves both routes)
 FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # the kernels' symbols as the profiler names them (csrc/*.cu)
 KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "exit_softargmin_kernel",
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel",
-                  "void conv3d_fused_kernel", "void warp_coords_kernel")
+                  "void conv3d_fused_kernel", "void warp_coords_kernel", "lane_slice_kernel", "void row_gather_kernel",
+                  "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
 PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
@@ -118,12 +161,20 @@ PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmi
 # view and stage for the sweep, and as often for the GT-depth warp
 PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
 # launches per view of the product: bf16 runs K1-K4, fp32 runs K9 and K2
-NO_ROUTE_KERNELS = {"conv3d_front_fused": 0, "conv3d_down": 0, "warp_sim_coords": 0, "warp_sim_coords_batched": 0}
+OFF_PATH = {"conv3d_front_fused": 0, "conv3d_down": 0, "warp_sim_coords": 0, "warp_sim_coords_batched": 0,
+            **{name: 0 for name in PROBE_NAMES}}
 PER_VIEW = {
     "bf16": {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1,
-             "warp_gather": 0, "warp_sim": 0, "warp_sim_backward": 0, **NO_ROUTE_KERNELS},
+             "warp_gather": 0, "warp_sim": 0, "warp_sim_backward": 0, **OFF_PATH},
     "fp32": {"warp_entropy": 0, "conv3d_bn_relu": 3, "exit_softargmin": 0, "dynconv_branches": 0,
-             "warp_gather": 3 * (V - 1), "warp_sim": 0, "warp_sim_backward": 0, **NO_ROUTE_KERNELS},
+             "warp_gather": 3 * (V - 1), "warp_sim": 0, "warp_sim_backward": 0, **OFF_PATH},
+}
+# launches per push of the stream once its window is full (every kernel not
+# named: 0): bf16 runs K1-K4, fp32 K9 and K2
+PER_PUSH = {
+    "bf16": {"warp_entropy": 3 * (STREAM_WINDOW - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3,
+             "dynconv_branches": 1},
+    "fp32": {"warp_gather": 3 * (STREAM_WINDOW - 1), "conv3d_bn_relu": 3},
 }
 # the routed requests of the routes phase: (warp route per stage, front) and
 # the launches of one request at B=1 (every kernel not named: 0). K6, K7 and
@@ -204,10 +255,11 @@ def stage_shapes():
     return [(32, NDEPTHS[0], H // 4, W // 4), (16, NDEPTHS[1], H // 2, W // 2), (8, NDEPTHS[2], H, W)]
 
 
-def phase_kernels(torch, batch, train_batch, dev):
+def phase_kernels(torch, batch, train_batch, stream_scene, dev):
     """Each kernel against its plain version at the main-path shapes, in
-    bf16 as the main path runs them: K1-K4 at the serve point's, K5 at the
-    train point's."""
+    bf16 as the main path runs them: K1-K4 at the serve point's and the
+    stream point's (rows tagged ``"point": "stream"``), K5 at the train
+    point's; P1 and P2 at their probes'."""
     import torch.nn.functional as F
 
     from cds_mvsnet_tpu_torch.ops import kernels as K
@@ -230,7 +282,7 @@ def phase_kernels(torch, batch, train_batch, dev):
         results[name].append(row)
         emit({"phase": "kernels", "kernel": name, **row})
         if not ok:
-            failures.append(f"{name}@stage{stage}")
+            failures.append(f"{name}@{row.get('point', 'main')}:stage{stage}")
 
     dvals = torch.linspace(425.0, 905.0, D_FULL, device=dev)
     interval = float(dvals[1] - dvals[0])
@@ -247,93 +299,12 @@ def phase_kernels(torch, batch, train_batch, dev):
             hyp = (centre[None] + steps[:, None, None] * ratio * interval).contiguous()
         route_kernels(torch, batch, uniform, record, s, (C, D, h, w), hyp)
 
-        # K1: tanh-range features; channels-last source
-        src = uniform((h, w, C))
-        ref = uniform((C, h, w))
-        ip_k, ent_k = K.warp_entropy(src, ref, hyp, rt)
-        torch.cuda.synchronize()
-        ip_p, ent_p = K.warp_entropy_plain(src, ref, hyp, rt)
-        # both sum the same four fp32 corner terms (in another order) and
-        # round the warped value to bf16: one bf16 ulp of the warped value,
-        # times |ref| <= 1, plus the product's own rounding
-        d_ip = (ip_k.float() - ip_p.float()).abs()
-        tol_ip = 2 ** -7 * ip_p.float().abs() + 2 ** -8
-        d_ent = (ent_k - ent_p).abs()
-        ok = bool((d_ip <= tol_ip).all()) and float(d_ent.max()) <= 1e-2
-        bytes_k1 = src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + ip_k.numel() * 2 + ent_k.numel() * 4
-        flops_k1 = D * h * w * (11 * C + 20)
-        record("warp_entropy", s, float(d_ip.max()),
-               "in_prod |d| <= 2^-7|plain| + 2^-8 (one bf16 ulp of warped); entropy |d| <= 1e-2", ok,
-               timed(torch, lambda: K.warp_entropy(src, ref, hyp, rt), 10),
-               timed(torch, lambda: K.warp_entropy_plain(src, ref, hyp, rt), 2),
-               None, bytes_k1, flops_k1, PEAK_FP32_FLOPS,
-               {"entropy_max_abs_err": float(d_ent.max()), "in_prod_exact_frac": float((d_ip == 0).float().mean())})
-        del ip_k, ip_p, d_ip, tol_ip
-
-        # K2: mean volume in, folded conv0 weights
-        vol = uniform((C, D, h, w))
-        bound_w = (27 * C) ** -0.5
-        wk = uniform((8, C, 3, 3, 3), -bound_w, bound_w, torch.float32)
-        bk = uniform((8,), -0.1, 0.1, torch.float32)
-        y_k = K.conv3d_bn_relu(vol, wk, bk)
-        torch.cuda.synchronize()
-        y_p = K.conv3d_bn_relu_plain(vol, wk, bk)
-        # fp32 sums in another order, then one rounding to bf16
-        d = (y_k.float() - y_p.float()).abs()
-        ok = bool((d <= 2 ** -7 * y_p.float().abs() + 1e-3).all())
-        wb, bb = wk.to(torch.bfloat16), bk.to(torch.bfloat16)
-        record("conv3d_bn_relu", s, float(d.max()), "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok,
-               timed(torch, lambda: K.conv3d_bn_relu(vol, wk, bk), 5),
-               timed(torch, lambda: K.conv3d_bn_relu_plain(vol, wk, bk), 3),
-               timed(torch, lambda: F.conv3d(vol[None], wb, bb, padding=1).relu_(), 5),
-               vol.numel() * 2 + wk.numel() * 4 + 32 + y_k.numel() * 2,
-               2 * 27 * C * 8 * D * h * w, PEAK_BF16_FLOPS)
-        del vol, y_k, y_p, d
-
-        # K3: UNet exit in, true hypotheses
-        yx = uniform((8, D, h, w), -2.0, 2.0)
-        wp = uniform((1, 8, 3, 3, 3), -0.3, 0.3, torch.float32)
-        dk, ck = K.exit_softargmin(yx, wp, hyp)
-        torch.cuda.synchronize()
-        dp, cp = K.exit_softargmin_plain(yx, wp, hyp)
-        # fp32 logits summed in another order: depth agrees to fp32
-        # rounding of a ~600 mm expectation; confidence is compared where the
-        # truncated plane index agrees (a flip moves the window)
-        d_dep = (dk - dp).abs()
-        same = torch.isclose(dk, dp, rtol=0, atol=1e-2)
-        logits = F.conv3d(yx.float()[None], wp, padding=1)[0, 0]
-        idx_p = (torch.softmax(logits, 0) * torch.arange(D, device=dev, dtype=torch.float32)[:, None, None]).sum(0)
-        frac = idx_p - idx_p.floor()
-        safe = (frac > 1e-3) & (frac < 1 - 1e-3)  # no truncation flip possible
-        d_conf = (ck - cp).abs()
-        ok = bool(same.all()) and float(d_conf[safe].max()) <= 1e-4
-        record("exit_softargmin", s, float(d_dep.max()), "depth |d| <= 1e-2 mm; conf |d| <= 1e-4 off truncation boundaries", ok,
-               timed(torch, lambda: K.exit_softargmin(yx, wp, hyp), 5),
-               timed(torch, lambda: K.exit_softargmin_plain(yx, wp, hyp), 3),
-               None, yx.numel() * 2 + wp.numel() * 4 + hyp.numel() * 4 + 2 * h * w * 4,
-               2 * 216 * D * h * w, PEAK_BF16_FLOPS,
-               {"conf_max_abs_err_safe": float(d_conf[safe].max()),
-                "conf_diff_frac": float((d_conf > 1e-4).float().mean()),
-                "near_boundary_frac": float((~safe).float().mean())})
-        del yx, dk, dp, ck, cp, logits
+        cascade_kernels(torch, dev, uniform, record, s, (C, D, h, w), hyp, rt)
 
     # K4: conv01 over the stack of 2(V-1) images, branches k = 3, 5, 7
-    N = 2 * (V - 1)
-    x = uniform((N, 8, H, W))
-    ws = [uniform((11, 8, k, k), -(8 * k * k) ** -0.5, (8 * k * k) ** -0.5, torch.float32) for k in (3, 5, 7)]
-    o_k = K.dynconv_branches(x, ws)
-    torch.cuda.synchronize()
-    o_p = K.dynconv_branches_plain(x, ws)
-    d = (o_k.float() - o_p.float()).abs()
-    ok = bool((d <= 2 ** -7 * o_p.float().abs() + 1e-3).all())
-    wsb = [w_.to(torch.bfloat16) for w_ in ws]
-    record("dynconv_branches", 3, float(d.max()), "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok,
-           timed(torch, lambda: K.dynconv_branches(x, ws), 5),
-           timed(torch, lambda: K.dynconv_branches_plain(x, ws), 3),
-           timed(torch, lambda: [F.conv2d(x, w_, padding=w_.shape[-1] // 2) for w_ in wsb], 5),
-           x.numel() * 2 + sum(w_.numel() * 4 for w_ in ws) + o_k.numel() * 2,
-           2 * N * H * W * 11 * 8 * (9 + 25 + 49), PEAK_BF16_FLOPS)
-    del x, o_k, o_p, d
+    dynconv_kernel(torch, uniform, record, 2 * (V - 1), H, W)
+    stream_kernels(torch, dev, uniform, tagged(record, "stream"), stream_scene)
+    probe_kernels(torch, dev, record)
 
     # K5, forward and backward, per batch element at the train point's stage
     # shapes: source and reference share the stage resolution; stage 1 sweeps
@@ -411,6 +382,217 @@ def phase_kernels(torch, batch, train_batch, dev):
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return results
+
+
+def cascade_kernels(torch, dev, uniform, record, s, shape, hyp, rt):
+    """K1, K2 and K3 against their plain versions at one stage shape of the
+    eval cascade, bf16 as the main path runs them: ``hyp`` the stage's
+    hypotheses, ``rt`` the 12-scalar warp of one (ref, src) pair."""
+    import torch.nn.functional as F
+
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    C, D, h, w = shape
+    # K1: tanh-range features; channels-last source
+    src = uniform((h, w, C))
+    ref = uniform((C, h, w))
+    ip_k, ent_k = K.warp_entropy(src, ref, hyp, rt)
+    torch.cuda.synchronize()
+    ip_p, ent_p = K.warp_entropy_plain(src, ref, hyp, rt)
+    # both sum the same four fp32 corner terms (in another order) and
+    # round the warped value to bf16: one bf16 ulp of the warped value,
+    # times |ref| <= 1, plus the product's own rounding
+    d_ip = (ip_k.float() - ip_p.float()).abs()
+    tol_ip = 2 ** -7 * ip_p.float().abs() + 2 ** -8
+    d_ent = (ent_k - ent_p).abs()
+    ok = bool((d_ip <= tol_ip).all()) and float(d_ent.max()) <= 1e-2
+    bytes_k1 = src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + ip_k.numel() * 2 + ent_k.numel() * 4
+    flops_k1 = D * h * w * (11 * C + 20)
+    record("warp_entropy", s, float(d_ip.max()),
+           "in_prod |d| <= 2^-7|plain| + 2^-8 (one bf16 ulp of warped); entropy |d| <= 1e-2", ok,
+           timed(torch, lambda: K.warp_entropy(src, ref, hyp, rt), 10),
+           timed(torch, lambda: K.warp_entropy_plain(src, ref, hyp, rt), 2),
+           None, bytes_k1, flops_k1, PEAK_FP32_FLOPS,
+           {"entropy_max_abs_err": float(d_ent.max()), "in_prod_exact_frac": float((d_ip == 0).float().mean())})
+    del ip_k, ip_p, d_ip, tol_ip
+
+    # K2: mean volume in, folded conv0 weights
+    vol = uniform((C, D, h, w))
+    bound_w = (27 * C) ** -0.5
+    wk = uniform((8, C, 3, 3, 3), -bound_w, bound_w, torch.float32)
+    bk = uniform((8,), -0.1, 0.1, torch.float32)
+    y_k = K.conv3d_bn_relu(vol, wk, bk)
+    torch.cuda.synchronize()
+    y_p = K.conv3d_bn_relu_plain(vol, wk, bk)
+    # fp32 sums in another order, then one rounding to bf16
+    d = (y_k.float() - y_p.float()).abs()
+    ok = bool((d <= 2 ** -7 * y_p.float().abs() + 1e-3).all())
+    wb, bb = wk.to(torch.bfloat16), bk.to(torch.bfloat16)
+    record("conv3d_bn_relu", s, float(d.max()), "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok,
+           timed(torch, lambda: K.conv3d_bn_relu(vol, wk, bk), 5),
+           timed(torch, lambda: K.conv3d_bn_relu_plain(vol, wk, bk), 3),
+           timed(torch, lambda: F.conv3d(vol[None], wb, bb, padding=1).relu_(), 5),
+           vol.numel() * 2 + wk.numel() * 4 + 32 + y_k.numel() * 2,
+           2 * 27 * C * 8 * D * h * w, PEAK_BF16_FLOPS)
+    del vol, y_k, y_p, d
+
+    # K3: UNet exit in, true hypotheses
+    yx = uniform((8, D, h, w), -2.0, 2.0)
+    wp = uniform((1, 8, 3, 3, 3), -0.3, 0.3, torch.float32)
+    dk, ck = K.exit_softargmin(yx, wp, hyp)
+    torch.cuda.synchronize()
+    dp, cp = K.exit_softargmin_plain(yx, wp, hyp)
+    # fp32 logits summed in another order: depth agrees to fp32
+    # rounding of a ~600 mm expectation; confidence is compared where the
+    # truncated plane index agrees (a flip moves the window)
+    d_dep = (dk - dp).abs()
+    same = torch.isclose(dk, dp, rtol=0, atol=1e-2)
+    logits = F.conv3d(yx.float()[None], wp, padding=1)[0, 0]
+    idx_p = (torch.softmax(logits, 0) * torch.arange(D, device=dev, dtype=torch.float32)[:, None, None]).sum(0)
+    frac = idx_p - idx_p.floor()
+    safe = (frac > 1e-3) & (frac < 1 - 1e-3)  # no truncation flip possible
+    d_conf = (ck - cp).abs()
+    ok = bool(same.all()) and float(d_conf[safe].max()) <= 1e-4
+    record("exit_softargmin", s, float(d_dep.max()), "depth |d| <= 1e-2 mm; conf |d| <= 1e-4 off truncation boundaries", ok,
+           timed(torch, lambda: K.exit_softargmin(yx, wp, hyp), 5),
+           timed(torch, lambda: K.exit_softargmin_plain(yx, wp, hyp), 3),
+           None, yx.numel() * 2 + wp.numel() * 4 + hyp.numel() * 4 + 2 * h * w * 4,
+           2 * 216 * D * h * w, PEAK_BF16_FLOPS,
+           {"conf_max_abs_err_safe": float(d_conf[safe].max()),
+            "conf_diff_frac": float((d_conf > 1e-4).float().mean()),
+            "near_boundary_frac": float((~safe).float().mean())})
+    del yx, dk, dp, ck, cp, logits
+
+
+def dynconv_kernel(torch, uniform, record, N, H, W):
+    """K4 against its plain version on conv01's stack of ``N`` images at
+    ``H x W``: the branches k = 3, 5, 7."""
+    import torch.nn.functional as F
+
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    x = uniform((N, 8, H, W))
+    ws = [uniform((11, 8, k, k), -(8 * k * k) ** -0.5, (8 * k * k) ** -0.5, torch.float32) for k in (3, 5, 7)]
+    o_k = K.dynconv_branches(x, ws)
+    torch.cuda.synchronize()
+    o_p = K.dynconv_branches_plain(x, ws)
+    d = (o_k.float() - o_p.float()).abs()
+    ok = bool((d <= 2 ** -7 * o_p.float().abs() + 1e-3).all())
+    wsb = [w_.to(torch.bfloat16) for w_ in ws]
+    record("dynconv_branches", 3, float(d.max()), "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok,
+           timed(torch, lambda: K.dynconv_branches(x, ws), 5),
+           timed(torch, lambda: K.dynconv_branches_plain(x, ws), 3),
+           timed(torch, lambda: [F.conv2d(x, w_, padding=w_.shape[-1] // 2) for w_ in wsb], 5),
+           x.numel() * 2 + sum(w_.numel() * 4 for w_ in ws) + o_k.numel() * 2,
+           2 * N * H * W * 11 * 8 * (9 + 25 + 49), PEAK_BF16_FLOPS)
+    del x, o_k, o_p, d
+
+
+def tagged(record, point: str):
+    """``record`` with ``"point": point`` added to each row's extras."""
+    def rec(*args):
+        extra = dict(args[11]) if len(args) > 11 else {}
+        return record(*args[:11], {**extra, "point": point})
+
+    return rec
+
+
+def stream_cams(cams):
+    """Per-stage packed cameras ``(1, V, 2, 4, 4)`` of a window of
+    full-resolution cameras ``(V, 2, 4, 4)``, scaled as
+    ``eval/streaming.py`` scales them."""
+    out = {}
+    for i, scale in enumerate((1.0, 2.0, 4.0)):
+        m = cams.copy()
+        m[:, 1, :2, :] *= scale / 4.0
+        out[f"stage{i + 1}"] = m[None]
+    return out
+
+
+def stream_stage_shapes():
+    """(C, D, h, w) of each stage at the stream point."""
+    return [(32, STREAM_NDEPTHS[0], STREAM_H // 4, STREAM_W // 4),
+            (16, STREAM_NDEPTHS[1], STREAM_H // 2, STREAM_W // 2), (8, STREAM_NDEPTHS[2], STREAM_H, STREAM_W)]
+
+
+def stream_kernels(torch, dev, uniform, record, scene):
+    """K1-K3 at the stream point's stage shapes, on the warp between the
+    first window's reference and its first source view, and K4 on its stack
+    of 2(window-1) frames at 480x640."""
+    from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform
+
+    cams = stream_cams(scene["cams"][STREAM_WINDOW - 1::-1])  # the first full window, newest first
+    interval = (scene["depth_max"] - scene["depth_min"]) / (STREAM_PLANES - 1)
+    for s, (C, D, h, w) in enumerate(stream_stage_shapes(), start=1):
+        m = torch.as_tensor(cams[f"stage{s}"], device=dev)
+        rot, trans = relative_warp_transform(m[:, 0], m[:, 1])
+        rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+        if s == 1:
+            hyp = torch.linspace(scene["depth_min"], scene["depth_max"], D, device=dev).contiguous()
+        else:  # per-pixel windows around a smooth depth map, ratios 2 and 1
+            centre = uniform((h, w), 560.0, 640.0, torch.float32)
+            steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
+            hyp = (centre[None] + steps[:, None, None] * (2.0, 1.0)[s - 2] * interval).contiguous()
+        cascade_kernels(torch, dev, uniform, record, s, (C, D, h, w), hyp, rt)
+    dynconv_kernel(torch, uniform, record, 2 * (STREAM_WINDOW - 1), STREAM_H, STREAM_W)
+
+
+def probe_kernels(torch, dev, record):
+    """P1 at the probe's input (8 rows, nseg 4, ``x = arange``, offsets
+    ``128·i``) and on a 192 KB band (nseg 48, seeded values, unaligned
+    offsets; rows tagged ``"point": "wide"``); P2's three gather forms and
+    the int16 arithmetic at the probe's (64, 128) seeded inputs. Each must
+    equal its plain version bit for bit. These toys are launch-bound: their
+    bytes take nanoseconds, a launch microseconds, and the wrapper's host
+    path (checks, the ctypes call) sets ``ms``; ``device_ms`` is the
+    kernel's own time under the profiler."""
+    import numpy as np
+
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+    from cds_mvsnet_tpu_torch.tools.probe_gather16 import FORMS, inputs
+
+    rng = np.random.default_rng(SEED)
+    for nseg in (4, 48):
+        if nseg == 4:
+            x = torch.arange(8 * 128 * nseg, dtype=torch.float32, device=dev).reshape(8, -1)
+            offs = torch.arange(nseg, dtype=torch.int32, device=dev) * 128
+        else:
+            x = torch.as_tensor(rng.standard_normal((8, 128 * nseg)).astype(np.float32), device=dev)
+            offs = torch.as_tensor(rng.integers(0, 128 * nseg, nseg).astype(np.int32), device=dev)
+        got = K.lane_slice_sum(x, offs)
+        torch.cuda.synchronize()
+        want = K.lane_slice_sum_plain(x, offs)
+        record("lane_slice_sum", f"nseg{nseg}", float((got - want).abs().max()), "bit for bit", torch.equal(got, want),
+               timed(torch, lambda: K.lane_slice_sum(x, offs), 100),
+               timed(torch, lambda: K.lane_slice_sum_plain(x, offs), 10),
+               None, (x.numel() + nseg + got.numel()) * 4, x.numel(), PEAK_FP32_FLOPS,
+               {"shape": list(x.shape), "offsets": offs.tolist()[:8],
+                "device_ms": kernel_device_ms(torch, lambda: K.lane_slice_sum(x, offs), "lane_slice_kernel"),
+                **({"point": "wide"} if nseg == 48 else {})})
+    src_np, idx_np = inputs()
+    src, idx = torch.as_tensor(src_np, device=dev), torch.as_tensor(idx_np, device=dev)
+    idx64 = idx.long()
+    io_bytes = (src.numel() + idx.numel() + src.numel()) * 4
+    for form, (vdt, idt) in FORMS.items():
+        got = K.row_gather(src, idx, vdt, idt)
+        torch.cuda.synchronize()
+        want = K.row_gather_plain(src, idx, vdt, idt)
+        values = src.to(vdt)
+        record("row_gather", form, float((got - want).abs().max()), "bit for bit",
+               torch.equal(got.view(torch.int32), want.view(torch.int32)),
+               timed(torch, lambda: K.row_gather(src, idx, vdt, idt), 100),
+               timed(torch, lambda: K.row_gather_plain(src, idx, vdt, idt), 10),
+               timed(torch, lambda: torch.gather(values, 1, idx64), 100), io_bytes, 0, PEAK_FP32_FLOPS,
+               {"shape": list(src.shape), "library": "torch.gather on the values in their type, int64 indices",
+                "device_ms": kernel_device_ms(torch, lambda: K.row_gather(src, idx, vdt, idt), "row_gather_kernel"),
+                "library_device_ms": kernel_device_ms(torch, lambda: torch.gather(values, 1, idx64), "gather")})
+    got = K.int16_arith(src)
+    torch.cuda.synchronize()
+    want = K.int16_arith_plain(src)
+    record("int16_arith", "i16_arith", float((got - want).abs().max()), "bit for bit", torch.equal(got, want),
+           timed(torch, lambda: K.int16_arith(src), 100), timed(torch, lambda: K.int16_arith_plain(src), 10),
+           None, 2 * src.numel() * 4, src.numel(), PEAK_FP32_FLOPS,
+           {"shape": list(src.shape), "device_ms": kernel_device_ms(torch, lambda: K.int16_arith(src), "int16_arith")})
 
 
 def route_kernels(torch, batch, uniform, record, s, shape, hyp):
@@ -755,8 +937,9 @@ def layer_times(torch, model, request) -> dict:
 def device_profile(torch, run, top: int = 15) -> dict:
     """``torch.profiler`` over one call of ``run``: device kernel time
     summed by name and by group (the hand-written kernels, cuDNN
-    convolutions, PyTorch elementwise and reduction kernels, the rest), and
-    the device's busy share of the call's wall time."""
+    convolutions, PyTorch elementwise and reduction kernels, the rest), the
+    device's busy share of the call's wall time, and the host operators
+    with the most self CPU time (under the profiler, which adds to each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -784,7 +967,19 @@ def device_profile(torch, run, top: int = 15) -> dict:
         "busy_share": device_ms / wall_ms if rows else "not measured",
         "groups_ms": groups if rows else "not measured",
         "top": [{"name": k[:100], "ms": ms, "calls": n, "share": ms / device_ms} for ms, n, k in rows[:top]],
+        "host_top": [{"name": evt.key[:60], "self_cpu_ms": evt.self_cpu_time_total / 1e3, "calls": evt.count}
+                     for evt in sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                                       key=lambda e: -e.self_cpu_time_total)[:10]],
     }
+
+
+def kernel_device_ms(torch, fn, symbol: str, reps: int = 20) -> float:
+    """Device ms of one launch of the kernel named ``symbol`` under
+    ``torch.profiler``, over ``reps`` calls of ``fn``: for a kernel whose
+    wrapper's host path takes longer than the kernel itself; None where no
+    such kernel ran."""
+    prof = device_profile(torch, lambda: [fn() for _ in range(reps)], top=5)
+    return next((t["ms"] / t["calls"] for t in prof["top"] if symbol in t["name"]), None)
 
 
 SGEMM = "precomputed_convolve_sgemm"  # the largest cuDNN kernel of a request (PERF.md)
@@ -1041,7 +1236,7 @@ def write_dtu_scan(root, seed: int = SEED):
 def all_kernels():
     from cds_mvsnet_tpu_torch.ops import kernels as K
 
-    return {k.__name__: k for k in (*K.KERNELS, *K.TRAIN_KERNELS, *K.FP32_KERNELS, *K.ROUTE_KERNELS)}
+    return {k.__name__: k for k in (*K.KERNELS, *K.TRAIN_KERNELS, *K.FP32_KERNELS, *K.ROUTE_KERNELS, *K.PROBE_KERNELS)}
 
 
 def product_run(torch, argv):
@@ -1098,13 +1293,14 @@ def check_written(np, out_dir, views, dmin, dmax):
     return problems
 
 
-def forward_overlap(torch, model, b, reps: int = 3) -> dict:
-    """Host and device time of one forward, in bf16 and in fp32: the host
-    time until ``forward`` returns (what the next view waits for before it
-    can be queued) and until the card has finished."""
+def forward_overlap(torch, model, b, reps: int = 3, dtypes=None) -> dict:
+    """Host and device time of one forward, in bf16 and in fp32 (or
+    ``dtypes``, tag -> dtype): the host time until ``forward`` returns (what
+    the next view waits for before it can be queued) and until the card has
+    finished."""
     args = (b["imgs"], b["proj_matrices"], b["depth_values"])
     out = {}
-    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+    for tag, dtype in (dtypes or {"bf16": torch.bfloat16, "fp32": torch.float32}).items():
         model(*args, compute_dtype=dtype)
         torch.cuda.synchronize()
         host, total = [], []
@@ -1256,6 +1452,182 @@ def phase_product(torch, dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_probes(torch) -> dict:
+    """The probes' own entry points, the path of P1 and P2: each tool's
+    ``main`` on the card, every launch count set to 0 just before and read
+    just after. Returns the probes' launches."""
+    from cds_mvsnet_tpu_torch.tools import probe_gather16, probe_lane_slice
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    lane = probe_lane_slice.main([], device="cuda")
+    gather = probe_gather16.main([], device="cuda")
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = {name: PER_PROBE_RUN.get(name, 0) for name in kernels}
+    ok = lane["ok"] and all(r["ok"] for r in gather.values()) and launches == want
+    emit({"phase": "probes", "lane_slice": lane, "gather16": gather,
+          "launches": {n: c for n, c in launches.items() if c}, "launches_expected": PER_PROBE_RUN, "ok": ok})
+    if not ok:
+        raise RuntimeError("a probe failed or launched other kernels than its own")
+    return {name: launches[name] for name in PROBE_NAMES}
+
+
+def phase_stream(torch, scene, dev):
+    """The stream point (see the module note), bf16 then fp32. Pass 1 pushes
+    the 12 frames in order with every launch count set to 0 before each push
+    and read after it (exactly PER_PUSH once the window is full, nothing
+    before), and holds each map to the serve gate against the plain path
+    (``kernels=False``) of its dtype on the same window. Pass 2, after a
+    reset, times each push on the host clock (the numpy return synchronises)
+    with the peak memory; the host and total time of a forward on the last
+    window; one more push runs under ``torch.profiler``."""
+    import numpy as np
+
+    from cds_mvsnet_tpu_torch.eval.streaming import StreamingConfig, StreamingReconstructor
+
+    kernels = all_kernels()
+    interval = (scene["depth_max"] - scene["depth_min"]) / (STREAM_PLANES - 1)  # the stage-3 plane interval
+    gate = {"depth_median_max": 0.01 * interval, "depth_p99_max": 0.25 * interval, "conf_median_max": 1e-3,
+            "conf_p99_max": 0.05}
+    runs, problems = {}, []
+    for tag, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+        cfg = StreamingConfig(depth_min=scene["depth_min"], depth_max=scene["depth_max"], compute_dtype=dtype)
+        rec = StreamingReconstructor(None, cfg, device=dev)  # build_model's seeded weights
+        want = {name: PER_PUSH[tag].get(name, 0) for name in kernels}
+        nones, maps, bad_launches = 0, [], []
+        for v in range(STREAM_VIEWS):
+            for k in kernels.values():
+                k.launches = 0
+            out = rec.push(scene["imgs"][v], scene["cams"][v])
+            launches = {name: k.launches for name, k in kernels.items()}
+            if out is None:
+                nones += 1
+                if any(launches.values()):
+                    bad_launches.append(v)
+                continue
+            if launches != want:
+                bad_launches.append(v)
+            imgs, proj, dv = rec.inputs()
+            ref = rec.model(imgs, proj, dv, temperature=cfg.temperature, compute_dtype=rec.dtype, kernels=False)
+            cmp = {}
+            for key, got, plain in (("depth", out[0], ref["refined_depth"][0]),
+                                    ("conf", out[1], ref["stage3"]["photometric_confidence"][0])):
+                cmp[f"{key}_median"], cmp[f"{key}_p99"] = quantiles(
+                    torch, (torch.as_tensor(got, device=dev) - plain).abs())
+            err = np.abs(out[0] - scene["gt_depth"][v])
+            maps.append({"view": v, "vs_plain": cmp, "finite": bool(np.isfinite(out[0]).all()),
+                         "gt_abs_err_mean": float(err.mean()), "gt_abs_err_median": float(np.median(err)),
+                         "gt_within_4_frac": float((err < 4 * interval).mean())})
+            if not (cmp["depth_median"] <= gate["depth_median_max"] and cmp["depth_p99"] <= gate["depth_p99_max"]
+                    and cmp["conf_median"] <= gate["conf_median_max"] and cmp["conf_p99"] <= gate["conf_p99_max"]
+                    and maps[-1]["finite"]):
+                problems.append(f"{tag} view {v}: {cmp}")
+        if nones != STREAM_WINDOW - 1 or len(maps) != STREAM_VIEWS - STREAM_WINDOW + 1 or bad_launches:
+            problems.append(f"{tag}: {nones} None, {len(maps)} maps, launches off at pushes {bad_launches}")
+
+        rec.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for v in range(STREAM_VIEWS):
+            t0 = time.perf_counter()
+            out = rec.push(scene["imgs"][v], scene["cams"][v])
+            if out is not None:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        imgs, proj, dv = rec.inputs()
+        forward = forward_overlap(torch, rec.model, {"imgs": imgs, "proj_matrices": proj, "depth_values": dv},
+                                  dtypes={tag: rec.dtype})[tag]
+        profile = device_profile(torch, lambda: rec.push(scene["imgs"][0], scene["cams"][0]))
+        runs[tag] = {"latency_ms_per_push": lat, "frames_per_s": 1e3 * len(lat) / sum(lat),
+                     "frames_per_s_median": 1e3 / sorted(lat)[len(lat) // 2], "peak_mem_bytes": peak,
+                     "pushes_none": nones, "maps": maps, "launches_per_push": PER_PUSH[tag],
+                     "forward_on_window": forward, "profile": profile}
+        del rec
+        torch.cuda.empty_cache()
+    ok = not problems
+    emit({"phase": "stream", "shape": [STREAM_WINDOW, STREAM_H, STREAM_W, 3], "views": STREAM_VIEWS,
+          "planes": STREAM_PLANES, "ndepths": list(STREAM_NDEPTHS),
+          "depth_range": [scene["depth_min"], scene["depth_max"]], "depth_interval": interval, "gate": gate,
+          "runs": runs, "problems": problems, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"stream phase failed: {problems}")
+
+
+def phase_custom(torch, dev):
+    """The custom-scene path: a 5-view sphere_scene at 864x1152 written as a
+    COLMAP workspace (binary model), converted by ``data/colmap.py``, then
+    ``test_cli.main`` with ``CUSTOM_FLAGS`` (bf16 on the card, normal
+    fusion) from a seeded checkpoint; launches per view as the product's
+    bf16 run; the fused cloud scored against the scene's surface points
+    (``score_points``) and each depth map against its exact depth
+    (``eval_depth_map``), reported (random weights: the maps sit far from
+    the surface, so the DTU cut at 20 can leave no distance to average).
+    Gate: files written, launches, points fused, and finite scores with the
+    distances clipped at 60 but not cut (``max_dist=inf``)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.data.colmap import convert_scene
+    from cds_mvsnet_tpu_torch.eval.depth_metrics import eval_depth_map
+    from cds_mvsnet_tpu_torch.eval.dtu_benchmark import score_points
+    from cds_mvsnet_tpu_torch.io.pfm import read_pfm
+    from cds_mvsnet_tpu_torch.io.ply import read_ply
+    from cds_mvsnet_tpu_torch.models import build_model
+    from cds_mvsnet_tpu_torch.models.convert import save_model
+    from cds_mvsnet_tpu_torch.utils.synthetic import sphere_scene, write_colmap_workspace
+
+    work = tempfile.mkdtemp(prefix="cds_custom_")
+    try:
+        t0 = time.perf_counter()
+        scene = sphere_scene(V=CUSTOM_VIEWS, H=CUSTOM_H, W=CUSTOM_W)
+        write_colmap_workspace(os.path.join(work, "colmap"), scene, ext=".bin")
+        n = convert_scene(os.path.join(work, "colmap"), os.path.join(work, "data", "scan1"), max_d=D_FULL,
+                          model_ext=".bin")
+        ckpt = os.path.join(work, "ckpt.npz")
+        save_model(ckpt, build_model(ModelConfig(refine=False, ndepths=NDEPTHS), seed=SEED, device=dev))
+        setup_s = time.perf_counter() - t0
+        out_dir = os.path.join(work, "out")
+        argv = ["--testpath", os.path.join(work, "data"), "--resume", ckpt, "--outdir", out_dir, *CUSTOM_FLAGS]
+        result, launches, syncs, wall = product_run(torch, argv)
+        want = {name: c * CUSTOM_VIEWS for name, c in PER_VIEW["bf16"].items()}
+        problems = [] if launches == want else [f"launches {launches} != {want}"]
+        depth_scores = []
+        for v in range(CUSTOM_VIEWS):
+            path = os.path.join(out_dir, "scan1", "depth_est", f"{v:0>8}.pfm")
+            if not os.path.exists(path):
+                problems.append(f"depth {v} missing")
+                continue
+            est = read_pfm(path)[0]
+            depth_scores.append(eval_depth_map(est, scene["gt_depth"][v]).as_dict())
+        points = result["points"]["scan1"]
+        t0 = time.perf_counter()
+        cloud = read_ply(os.path.join(out_dir, "scan1.ply"))[0] if points else np.zeros((0, 3), np.float32)
+        gt = scene["gt_points"]
+        cloud, gt = cloud[::max(1, len(cloud) // SCORE_POINTS)], gt[::max(1, len(gt) // SCORE_POINTS)]
+        scores = score_points(cloud, gt)
+        clipped = score_points(cloud, gt, max_dist=float("inf"))
+        score_s = time.perf_counter() - t0
+        finite = all(np.isfinite(clipped[k]) for k in ("acc_mean", "comp_mean"))
+        if not points or not finite or len(depth_scores) != CUSTOM_VIEWS:
+            problems.append(f"{points} points, scores {clipped}")
+        emit({"phase": "custom", "views": CUSTOM_VIEWS, "shape": [CUSTOM_H, CUSTOM_W], "flags": CUSTOM_FLAGS,
+              "converted": n, "setup_s": setup_s, "inference": result["inference"], "wall_s": wall,
+              "launches": launches, "launches_expected": want, "host_syncs": syncs, "points": points,
+              "scored_points": [len(cloud), len(gt)], "score_points": scores, "score_points_uncut": clipped,
+              "score_s": score_s, "depth_metrics": depth_scores,
+              "problems": problems, "ok": not problems})
+        if problems:
+            raise RuntimeError(f"custom-scene phase failed: {problems}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1265,7 +1637,7 @@ def main() -> int:
     try:
         from cds_mvsnet_tpu_torch.models import strict_fp32, to_tensors
         from cds_mvsnet_tpu_torch.ops.kernels import _build as kbuild
-        from cds_mvsnet_tpu_torch.utils.synthetic import synthetic_batch, textured_plane_batch
+        from cds_mvsnet_tpu_torch.utils.synthetic import sphere_scene, synthetic_batch, textured_plane_batch
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -1279,8 +1651,10 @@ def main() -> int:
     dev = torch.device("cuda")
     train_batch = to_tensors(synthetic_batch(B=TRAIN_B, V=V, H=TRAIN_H, W=TRAIN_W, D=D_FULL, refine=True,
                                              with_gt=True, seed=SEED), "cuda")
-    results = phase_kernels(torch, batch, train_batch, dev)
-    launches = phase_serve(torch, batch, dev)
+    stream_scene = sphere_scene(V=STREAM_VIEWS, H=STREAM_H, W=STREAM_W)
+    results = phase_kernels(torch, batch, train_batch, stream_scene, dev)
+    launches = phase_probes(torch)
+    launches.update(phase_serve(torch, batch, dev))
     launches.update(phase_routes(torch, batch, dev))
     del batch
     torch.cuda.empty_cache()
@@ -1288,11 +1662,15 @@ def main() -> int:
     del train_batch
     torch.cuda.empty_cache()
     launches.update(phase_product(torch, dev))
+    phase_stream(torch, stream_scene, dev)
+    del stream_scene
+    torch.cuda.empty_cache()
+    phase_custom(torch, dev)
 
     kernels = []
     for name, source_replaces in KERNEL_INFO.items():
         source, replaces = source_replaces
-        rows = results[name]
+        rows = [r for r in results[name] if "point" not in r]  # the main path's shapes
         # per-request totals at the serve shapes: K1 runs V-1 times per
         # stage; per-map totals at the protocol point: K9 runs V-1 times per
         # stage; per-step totals of the sweeps at the train shapes: K5 runs
@@ -1309,10 +1687,17 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows) * mult,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
             "library_ms": None if None in lib else sum(lib) * mult,
-            "per": "step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES else "request",
+            "per": ("step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES
+                    else "probe run" if name in PROBE_NAMES else "request"),
             "per_stage": [{k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                           for r in rows],
         })
+        for point in sorted({r["point"] for r in results[name] if "point" in r}):
+            kernels[-1][f"{point}_per_stage"] = [
+                {k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                for r in results[name] if r.get("point") == point]
+        if name in PROBE_NAMES:  # the probes run only in their tools
+            kernels[-1]["launches_per_map"] = 0
         if name == "warp_gather":  # the bf16 instantiation, off the main path
             kernels[-1]["bf16_per_stage"] = [
                 {k: r[k] for k in ("stage", "ms", "plain_ms", "bound_ms", "max_abs_err")}

@@ -15,6 +15,7 @@ round once to bf16, so they agree to one bf16 ulp of the result.
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -401,3 +402,94 @@ def test_routed_forward_makes_no_host_sync(gen):
     assert bool(torch.isfinite(out["refined_depth"]).all())
     after = [k.launches for k in (K.conv3d_front_fused, K.warp_sim_coords, K.warp_sim_coords_batched, K.warp_sim)]
     assert [a - c for a, c in zip(after, counts)] == [3, 2, 1, 2]
+
+
+def bits(t):
+    """The fp32 values as int32 bit patterns: equal NaNs compare equal."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["probe", "unaligned", "outside", "rows"])
+def test_lane_slice_sum_matches_plain(gen, case):
+    """P1 bit for bit: the probe's input, a 192 KB band (nseg 48) at
+    unaligned data-given offsets, offsets outside the band (clamped), and
+    fewer rows than the probe's 8."""
+    rows, nseg = {"probe": (8, 4), "unaligned": (8, 48), "outside": (8, 6), "rows": (3, 5)}[case]
+    if case == "probe":
+        x = torch.arange(8 * 128 * nseg, dtype=torch.float32, device="cuda").reshape(8, -1)
+        offs = torch.arange(nseg, dtype=torch.int32, device="cuda") * 128
+    else:
+        x = uniform(gen, (rows, 128 * nseg), dtype=torch.float32)
+        offs = (torch.rand(nseg, generator=gen, device="cuda") * 128 * nseg).to(torch.int32)
+        if case == "outside":
+            offs[:3] = torch.tensor([-5, 128 * nseg + 7, -1000], dtype=torch.int32)
+    before = K.lane_slice_sum.launches
+    got = K.lane_slice_sum(x, offs)
+    torch.cuda.synchronize()
+    assert K.lane_slice_sum.launches == before + 1
+    assert torch.equal(got, K.lane_slice_sum_plain(x, offs))
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_matches_plain(gen, value_dtype, index_dtype, src_dtype):
+    """P2's gather bit for bit, with indices from the row's end, outside
+    [-L, L) (NaN) and wrapping in int16, on the probe's (64, 128) and on
+    rows of 1000."""
+    for R, n in ((64, 128), (5, 1000)):
+        src = uniform(gen, (R, n), -4.0, 4.0, src_dtype)
+        idx = (torch.rand((R, n), generator=gen, device="cuda") * n).to(torch.int32)
+        idx[0, :6] = torch.tensor([-1, -n, n, 10 * n, -n - 1, 65536 + 3], dtype=torch.int32)
+        before = K.row_gather.launches
+        got = K.row_gather(src, idx, value_dtype, index_dtype)
+        torch.cuda.synchronize()
+        assert K.row_gather.launches == before + 1
+        assert torch.equal(bits(got), bits(K.row_gather_plain(src, idx, value_dtype, index_dtype)))
+        assert bool(torch.isnan(got[0, 2]))
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (3, 40000)])
+def test_int16_arith_matches_plain(gen, shape):
+    src = uniform(gen, shape, dtype=torch.float32)
+    before = K.int16_arith.launches
+    got = K.int16_arith(src)
+    torch.cuda.synchronize()
+    assert K.int16_arith.launches == before + 1
+    assert torch.equal(got, K.int16_arith_plain(src))
+
+
+def test_probe_wrappers_raise_rather_than_fall_back(gen):
+    x = uniform(gen, (8, 129 * 4), dtype=torch.float32)
+    offs = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):  # a view 4 bytes into the band
+        K.lane_slice_sum(x.view(-1)[1:1 + 512 * 8].view(8, 512), offs)
+    with pytest.raises(ValueError, match="devices"):
+        K.lane_slice_sum(x[:, :512].contiguous(), offs.cpu())
+    with pytest.raises(ValueError, match="devices"):
+        K.row_gather(x, torch.zeros(x.shape, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int16_arith"):
+        K.int16_arith(x.half())
+
+
+def test_stream_push_runs_the_kernels(gen):
+    """One bf16 push of a filled window runs KERNEL_OPS: K1 once per source
+    view and stage, K2 and K3 once per stage, K4 once, nothing else."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.eval.streaming import StreamingConfig, StreamingReconstructor
+    from cds_mvsnet_tpu_torch.utils.synthetic import sphere_scene
+
+    scene = sphere_scene(V=3, H=64, W=128)
+    rec = StreamingReconstructor(None, StreamingConfig(window=3, ndepths_full=64, height=64, width=128,
+                                                       depth_min=425.0, depth_max=937.0),
+                                 model_cfg=ModelConfig(refine=False, ndepths=(16, 8, 8)))
+    kernels = (*K.KERNELS, *K.FP32_KERNELS, *K.TRAIN_KERNELS, *K.ROUTE_KERNELS, *K.PROBE_KERNELS)
+    assert rec.push(scene["imgs"][0], scene["cams"][0]) is None
+    assert rec.push(scene["imgs"][1], scene["cams"][1]) is None
+    before = {k.__name__: k.launches for k in kernels}
+    depth, conf = rec.push(scene["imgs"][2], scene["cams"][2])
+    ran = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    assert {n: c for n, c in ran.items() if c} == {"warp_entropy": 6, "conv3d_bn_relu": 3, "exit_softargmin": 3,
+                                                    "dynconv_branches": 1}
+    assert depth.shape == conf.shape == (64, 128) and np.isfinite(depth).all() and np.isfinite(conf).all()
+    assert depth.min() >= 425.0 - 1e-3 and depth.max() <= 937.0 + 1e-3
