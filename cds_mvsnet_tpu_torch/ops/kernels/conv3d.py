@@ -10,25 +10,41 @@ route) or an fp32 one (the fp32 route); the output has the volume's dtype.
   ``pallas2``/``pallas3`` fronts. Replaces ``conv3d.py::conv3d_down`` (:490,
   the same body at ``stride=2``); D, h and w must be even.
 
-Kernel source: ``csrc/conv3d.cu``, one body templated on the dtype, O and
-the stride.
+Kernel sources: ``csrc/conv3d.cu`` and ``csrc/conv3d_mma.cuh``.
 
-Bound on the H100: memory, at the bf16 tensor-core rate. K2 reads the
-``(C, D, h, w)`` volume and writes ``(8, D, h, w)``: about 239 / 382 / 255 MB
-per launch at stages 1/2/3 of the 1152x864 main path (71 / 114 / 76 µs at
-3.35 TB/s) for 41 / 55 / 28 GFLOP. Design, first and simple: one thread per
-output voxel computes all O outputs with fp32 FMAs; the 27·C·O folded
-weights (at most 27 KB) sit in shared memory in ``[c][tap][o]`` order, so the
-O weights of a tap are one broadcast read; neighbouring threads read
-neighbouring voxels along w (every other one at stride 2), and the 27-fold
-reuse of each input voxel is left to the L1 cache. The CUDA cores' fp32
-rate, not memory, limits this version; a ``wgmma`` form over shared-memory
-tiles is later work. The TPU kernel's three pre-shifted volume copies (at
-stride 2 the lane de-interleave) and 8-row DMA windows are Mosaic mechanics
-and are not carried over. The fp32 instantiation is the same body on fp32
-loads and stores (twice the bytes). The TPU kernel rounds an fp32 volume to
-bf16 for its matrix unit (``conv3d.py:186-187,198``); that is an input
-format of the TPU, not the function, so the port's fp32 route stays fp32.
+Bound on the H100: memory. K2 reads the ``(C, D, h, w)`` volume and writes
+``(O, D, h, w)``: about 239 / 382 / 255 MB per launch at stages 1/2/3 of the
+1152x864 main path (71 / 114 / 76 µs at 3.35 TB/s) for 41 / 55 / 28 GFLOP
+(42 / 56 / 28 µs at the dense bf16 rate, twice that with the hi/lo split
+below).
+
+K2 in bf16 (``conv3d_mma_kernel``) is an implicit GEMM on the tensor cores
+(``mma.sync.m16n8k16``, bf16 in, fp32 sums): M = output voxels, N = O, K =
+27·C. A block of 8 warps owns 4x4x32 output voxels at a time (32 M-tiles of
+16 voxels along x), stays resident and walks the tiles of the volume. It
+stages the input halo (6x6x36 voxels, x from two before the tile so that
+pairs of voxels stay 4-byte aligned) 8 channels at a time into shared
+memory, channel-innermost (16 bytes per voxel), through registers, one
+four-byte load per channel and pair of voxels where w is even: the next
+chunk's loads are issued before the current chunk's MMAs. ldmatrix reads
+each step's A fragment (two taps of 8 channels), so the 27-fold reuse of an
+input comes from shared memory, not L1. The fp32 weights are split as they are
+staged, hi = bf16(w) and lo = bf16(w - hi), and every K-step runs two MMAs,
+hi and lo, into one fp32 accumulator: bf16 x bf16 products are exact in
+fp32, so the result keeps one bf16 ulp of the fp32 conv, which bf16 weights
+alone do not where outputs are small (``tests/test_torch_conv3d_split.py``).
+The TPU kernel rounds its weights to bf16 (``conv3d.py:187,198``), its
+matrix unit's input format; the port does not. C must be a multiple of 8.
+The body (``csrc/conv3d_mma.cuh``) is shared with K6's conv0. The TPU
+kernel's three pre-shifted volume copies (the x taps at lane-aligned DMA
+windows) are Mosaic mechanics; here ldmatrix takes any voxel row.
+
+K2 in fp32 and K7 keep the direct body (``conv3d_bn_relu_kernel``): one
+thread per output voxel computes all O outputs with fp32 FMAs, the folded
+weights in shared memory in ``[c][tap][o]`` order, the input reuse left to
+L1. In fp32 it beats cuDNN's fp32 conv, and K7 beats cuDNN's stride-2
+conv (``PERF.md``). The TPU kernel rounds an fp32 volume to bf16 for its
+matrix unit (``conv3d.py:186-187,198``); the port's fp32 route stays fp32.
 """
 
 from __future__ import annotations
@@ -64,8 +80,10 @@ def conv3d_down_plain(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> to
     return conv3d_bn_relu_plain(vol, w, b, stride=2)
 
 
-def check_conv(name: str, vol, w, b, out_channels=OUT_CHANNELS) -> None:
-    """The argument contract of K2, K7 and each of K6's two convs."""
+def check_conv(name: str, vol, w, b, out_channels=OUT_CHANNELS, tensor_cores: bool = False) -> None:
+    """The argument contract of K2, K7 and each of K6's two convs;
+    ``tensor_cores``: the conv runs on the tensor-core body in bf16 (K2, K6's
+    conv0), which takes C in chunks of 8 channels."""
     require(vol.ndim == 4, f"{name}: vol {tuple(vol.shape)}")
     C = vol.shape[0]
     O = w.shape[0] if w.ndim == 5 else -1
@@ -76,6 +94,8 @@ def check_conv(name: str, vol, w, b, out_channels=OUT_CHANNELS) -> None:
     require(vol.dtype in (torch.bfloat16, torch.float32), f"{name}: vol must be bf16 or fp32")
     require(w.dtype == b.dtype == torch.float32, f"{name}: w and b must be fp32")
     require(all(t.is_contiguous() for t in (vol, w, b)), f"{name}: inputs must be contiguous")
+    if tensor_cores and vol.dtype == torch.bfloat16:
+        require(C % 8 == 0, f"{name}: bf16 takes C in multiples of 8, got C={C}")
 
 
 def _launch(name: str, fn_name: str, vol, w, b, stride: int) -> torch.Tensor:
@@ -93,8 +113,8 @@ def _launch(name: str, fn_name: str, vol, w, b, stride: int) -> torch.Tensor:
 def conv3d_bn_relu(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K2: ``vol (C, D, h, w)`` bf16 or fp32 -> ``(O, D, h, w)`` in vol's
     dtype, O in 8/16; ``w (O, C, 3, 3, 3)`` and ``b (O,)`` fp32 with BN folded
-    (:func:`fold_bn_into_conv3d`)."""
-    check_conv("conv3d_bn_relu", vol, w, b)
+    (:func:`fold_bn_into_conv3d`); in bf16 C is a multiple of 8."""
+    check_conv("conv3d_bn_relu", vol, w, b, tensor_cores=True)
     if not on_card("conv3d_bn_relu", vol, w, b):
         return conv3d_bn_relu_plain(vol, w, b)
     out = _launch("conv3d_bn_relu", "conv3d_bn_relu_launch", vol, w, b, 1)

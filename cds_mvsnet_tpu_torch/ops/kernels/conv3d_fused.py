@@ -9,26 +9,48 @@ conv0's zero padding. D, h and w must be even. The ``pallasf``/``pallasf3``
 fronts of ``models/cost_reg.py`` run it.
 
 Replaces ``cds_mvsnet_tpu/ops/pallas/conv3d.py::conv3d_front_fused`` (:392,
-``pallas_call`` :457, body ``_conv3d_fused_kernel`` :233). Kernel source:
-``csrc/conv3d_fused.cu``.
+``pallas_call`` :457, body ``_conv3d_fused_kernel`` :233). Kernel sources:
+``csrc/conv3d_fused.cu`` and ``csrc/conv3d_mma.cuh``.
 
-Bound on the H100: memory, at the bf16 tensor-core rate: it reads the
-volume and writes out0 and out1, about 250 / 414 / 287 MB per launch at
-stages 1/2/3 of the 1152x864 main path (75 / 124 / 86 µs at 3.35 TB/s), for
-41 / 55 / 28 GFLOP of conv0 and 2.6 / 6.9 / 6.9 of conv1. Design, first and
-simple: one block of 256 threads owns a 4x4x16 tile of conv1 outputs. It
-computes the 9x9x33 conv0 values that tile reads (2t+1 per axis; the
-low-side halo, which the neighbouring tile owns, is recomputed: 1.3x conv0's
-operations) as K2 does, one voxel per thread at a time with fp32 FMAs,
-rounds each to the output type after bias and ReLU into shared memory, and
-stores to out0 only the 8x8x32 voxels the tile owns, so each voxel of out0
-is written once. Outside the volume the shared tile holds 0: conv1's zero
-padding at index -1 (the high side is never read by a valid output, as D, h
-and w are even). Then each thread computes one conv1 output, all 16
-channels, from shared memory. Both weight sets sit in shared memory (at
-most 41 KB); the fp32 FMAs, not memory, limit this version, as they do K2.
-The TPU kernel's lane rolls, x-parity double buffer and one-hot decimation
-matmuls (``dec0``/``dec1``) are Mosaic mechanics and are not carried over.
+Bound on the H100: memory: it reads the volume and writes out0 and out1,
+about 250 / 414 / 287 MB per launch at stages 1/2/3 of the 1152x864 main
+path (75 / 124 / 86 µs at 3.35 TB/s), for 41 / 55 / 28 GFLOP of conv0 and
+2.6 / 6.9 / 6.9 of conv1.
+
+bf16 (``conv3d_fused_mma_kernel``): a block of 8 warps owns a 2x4x16 tile
+of conv1 outputs at a time, stays resident and walks the tiles. Phase 1
+computes the 5x9x33 conv0 values the tile reads (2t+1 per axis; the
+low-side halo, which the tile before owns, is recomputed: 1.45x conv0's
+operations) with K2's tensor-core body (``csrc/conv3d_mma.cuh``: the same
+chunks, K-steps, hi/lo weight split and epilogue), so out0 equals K2's
+output bit for bit. It takes the region in two passes along z (planes 0-2,
+then 3-4), so that a warp's accumulators (7 M-tiles at most) stay in
+registers at two blocks per SM; each pass stages its own input halo (5 or
+4 planes of 11x36 voxels) 8 channels at a time, channel-innermost, the
+next one's loads in flight during the current MMAs: 9 input planes per
+chunk for the 7 a single pass would stage. The voxels of a pass, flattened,
+are M-tiles of 16 rows; ldmatrix takes each row's address, so no row is
+spent on padding along x. Each conv0 value, after
+bias, ReLU and rounding to bf16, goes to a shared conv0 tile, 0 outside the
+volume (conv1's zero padding at index -1; the high side is never read by a
+valid output, as D, h and w are even), and the 4x8x32 voxels the tile owns
+go to out0 from there, two along x per store, each once. Phase 2 computes
+conv1 from the shared tile with K7's fp32 FMAs in K7's order (``c, kd, ky,
+kx``), so out1 equals K7 on out0 bit for bit: 256 threads, one output and 8
+of its 16 channels each. Shared memory at C = 32: 28.0 KB of conv0 weight
+fragments, 30.9 KB of halo, 13.5 KB of conv1 weights, 23.2 KB of conv0
+tile, 95.6 KB in all: two blocks per SM. The fusion saves only the bytes of
+writing and reading out0 once (0.03-0.08 ms at the serve stages) against
+the 1.45x recompute and the larger halo, so K6 is slower than K2 and K7
+apart (``PERF.md``); it beats cuDNN's two calls. The TPU kernel's lane rolls,
+x-parity double buffer and one-hot decimation matmuls (``dec0``/``dec1``)
+are Mosaic mechanics and are not carried over; it rounds its weights to
+bf16, the port splits them (``conv3d.py``'s note).
+
+fp32 (``conv3d_fused_kernel``): the direct body of K2's and K7's fp32
+forms, one conv0 voxel per thread at a time with fp32 FMAs over a 9x9x33
+region per 4x4x16 conv1 tile, then one conv1 output per thread, so that in
+fp32 too out0 equals K2 and out1 equals K7 bit for bit.
 """
 
 from __future__ import annotations
@@ -51,11 +73,11 @@ def conv3d_front_fused_plain(vol, w0, b0, w1, b1):
 
 def conv3d_front_fused(vol: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
                        b1: torch.Tensor):
-    """``vol (C, D, h, w)`` bf16 or fp32, D, h, w even; ``w0 (8, C, 3, 3,
-    3)``, ``b0 (8,)``, ``w1 (16, 8, 3, 3, 3)``, ``b1 (16,)`` fp32 with BN
-    folded -> ``(out0 (8, D, h, w), out1 (16, D/2, h/2, w/2))`` in vol's
-    dtype."""
-    check_conv("conv3d_front_fused", vol, w0, b0, out_channels=(8,))
+    """``vol (C, D, h, w)`` bf16 or fp32, D, h, w even, C a multiple of 8 in
+    bf16; ``w0 (8, C, 3, 3, 3)``, ``b0 (8,)``, ``w1 (16, 8, 3, 3, 3)``,
+    ``b1 (16,)`` fp32 with BN folded -> ``(out0 (8, D, h, w), out1 (16, D/2,
+    h/2, w/2))`` in vol's dtype."""
+    check_conv("conv3d_front_fused", vol, w0, b0, out_channels=(8,), tensor_cores=True)
     require(tuple(w1.shape) == (16, 8, 3, 3, 3) and tuple(b1.shape) == (16,),
             f"conv3d_front_fused: w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}")
     require(w1.dtype == b1.dtype == torch.float32, "conv3d_front_fused: w1 and b1 must be fp32")

@@ -16,7 +16,8 @@ Phases, one JSON line each:
    K9 (fp32 and bf16) and K2 in fp32 at the three stage shapes of the DTU
    protocol point (the cascade at 576x768 under refinement);
    K5's forward and backward are checked the same way at the three stage
-   shapes of the train point (per batch element); K6, K7, K2 at 16 output
+   shapes of the train point (per batch element); K6 (timed beside cuDNN's
+   two calls and beside K2 then K7 apart), K7, K2 at 16 output
    channels and K8 (per view and over the 4 source views in one launch),
    which only the explicit routes run, at the serve shapes; K1-K4 again at
    the stream point's shapes (C/D/h x w = 32/128/120x160, 16/32/240x320,
@@ -125,7 +126,7 @@ CUSTOM_FLAGS = ["--dataset", "general", "--numdepth", str(D_FULL), "--max_h", st
 
 KERNEL_INFO = {
     "warp_entropy": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1342"),
-    "conv3d_bn_relu": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
+    "conv3d_bn_relu": ("cds_mvsnet_tpu_torch/csrc/conv3d_mma.cuh", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "exit_softargmin": ("cds_mvsnet_tpu_torch/csrc/regress.cu", "cds_mvsnet_tpu/ops/pallas/regress.py:224"),
     "dynconv_branches": ("cds_mvsnet_tpu_torch/csrc/dynconv.cu", "cds_mvsnet_tpu/ops/pallas/s2d_sparse.py:239"),
     "warp_sim": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp_vjp.py:75"),
@@ -134,7 +135,7 @@ KERNEL_INFO = {
     "conv3d_bn_relu_fp32": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "conv3d_front_fused": ("cds_mvsnet_tpu_torch/csrc/conv3d_fused.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:392"),
     "conv3d_down": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:490"),
-    "conv3d_bn_relu_o16": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
+    "conv3d_bn_relu_o16": ("cds_mvsnet_tpu_torch/csrc/conv3d_mma.cuh", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "warp_sim_coords": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1451"),
     "warp_sim_coords_batched": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:431"),
     "lane_slice_sum": ("cds_mvsnet_tpu_torch/csrc/lane_slice.cu", "tools/probe_lane_slice.py:44"),
@@ -149,11 +150,13 @@ PROBE_NAMES = tuple(PER_PROBE_RUN)
 # kernels whose launches the fp32 product run counts (K2's wrapper serves both routes)
 FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
-# the kernels' symbols as the profiler names them (csrc/*.cu)
-KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "exit_softargmin_kernel",
+# the kernels' symbols as the profiler names them (csrc/*.cu): K2 in bf16
+# is conv3d_mma_kernel, in fp32 (and K7) conv3d_bn_relu_kernel; K6 in bf16
+# conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel
+KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "void conv3d_mma_kernel", "exit_softargmin_kernel",
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel",
-                  "void conv3d_fused_kernel", "void warp_coords_kernel", "lane_slice_kernel", "void row_gather_kernel",
-                  "int16_arith_kernel")
+                  "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
+                  "lane_slice_kernel", "void row_gather_kernel", "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
 PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
@@ -656,7 +659,8 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
         return [t.to(torch.bfloat16) for t in wb]
 
     # K6: out0 against K2's plain version, out1 against K7's plain version
-    # on the kernel's own out0 (a flipped ulp of out0 does not propagate)
+    # on the kernel's own out0 (a flipped ulp of out0 does not propagate);
+    # timed beside cuDNN's two calls and beside K2 then K7 apart
     vol = uniform((C, D, h, w))
     wb0, wb1 = weights(8, C), weights(16, 8)
     o0, o1 = K.conv3d_front_fused(vol, *wb0, *wb1)
@@ -676,6 +680,7 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
            2 * 27 * C * 8 * D * h * w + 2 * 27 * 8 * 16 * Do * ho * wo, PEAK_BF16_FLOPS,
            {"shape": [C, D, h, w], "out0_max_abs_err": e0, "out1_max_abs_err": e1,
             "equal_to_k2_then_k7": same_as_k2_k7,
+            "k2_plus_k7_ms": timed(torch, lambda: K.conv3d_down(K.conv3d_bn_relu(vol, *wb0), *wb1), 5),
             "library": "two calls: F.conv3d+ReLU (conv0), then F.conv3d stride 2+ReLU (conv1)"})
     del vol, o0, o1
 
@@ -1689,7 +1694,8 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib) * mult,
             "per": ("step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES
                     else "probe run" if name in PROBE_NAMES else "request"),
-            "per_stage": [{k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+            "per_stage": [{k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                                             "k2_plus_k7_ms") if k in r}
                           for r in rows],
         })
         for point in sorted({r["point"] for r in results[name] if "point" in r}):

@@ -70,6 +70,47 @@ def test_conv3d_bn_relu_matches_plain(gen, C):
     assert within_one_ulp(K.conv3d_bn_relu(vol, w, b), K.conv3d_bn_relu_plain(vol, w, b))
 
 
+@pytest.mark.parametrize("shape", [(5, 11, 45), (7, 13, 37), (128, 7, 35)])
+@pytest.mark.parametrize("C,O", [(8, 8), (16, 8), (32, 8), (8, 16), (16, 16)])
+def test_conv3d_bn_relu_tensor_cores_on_ragged_shapes(gen, C, O, shape):
+    """K2 in bf16 (the tensor-core body) on shapes its 4x4x32 output tile
+    does not divide, D = 128 as the stream's stage 1 included; C = 32 at
+    O = 16 exceeds the weights' shared memory and is refused by check_conv."""
+    vol, w, b = conv_rig(gen, C, O, torch.bfloat16, shape)
+    before = K.conv3d_bn_relu.launches
+    got = K.conv3d_bn_relu(vol, w, b)
+    torch.cuda.synchronize()
+    assert K.conv3d_bn_relu.launches == before + 1
+    assert within_one_ulp(got, K.conv3d_bn_relu_plain(vol, w, b))
+
+
+@pytest.mark.parametrize("C,O", [(8, 8), (32, 8), (16, 16)])
+def test_conv3d_bn_relu_tensor_cores_cancellation(gen, C, O):
+    """Mixed-sign weights at 4x the usual bound and no bias: many outputs sit
+    near 0, where bf16 weights alone miss the tolerance by several 1e-3
+    (tests/test_torch_conv3d_split.py); the kernel's hi/lo split holds it."""
+    vol = uniform(gen, (C, 6, 12, 37))
+    bound = 4 * (27 * C) ** -0.5
+    w = uniform(gen, (O, C, 3, 3, 3), -bound, bound, torch.float32)
+    b = torch.zeros(O, device="cuda")
+    got = K.conv3d_bn_relu(vol, w, b)
+    want = K.conv3d_bn_relu_plain(vol, w, b)
+    assert within_one_ulp(got, want)
+    hi = w.to(torch.bfloat16)  # bf16 weights alone, summed in fp32
+    bf16_only = torch.relu(torch.nn.functional.conv3d(vol.float()[None], hi.float(), padding=1)[0]).to(torch.bfloat16)
+    assert not within_one_ulp(bf16_only, want)
+
+
+def test_conv3d_bn_relu_tensor_cores_refuse_ragged_channels(gen):
+    vol = uniform(gen, (12, 4, 6, 10))
+    w = uniform(gen, (8, 12, 3, 3, 3), dtype=torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K.conv3d_bn_relu(vol, w, torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K.conv3d_front_fused(vol, w, torch.zeros(8, device="cuda"), *conv_rig(gen, 8, 16, torch.bfloat16)[1:])
+    assert K.conv3d_bn_relu(vol.float(), w, torch.zeros(8, device="cuda")).dtype == torch.float32  # fp32: any C
+
+
 @pytest.mark.parametrize("per_pixel", [False, True])
 def test_exit_softargmin_matches_plain(gen, per_pixel):
     D, h, w = 9, 13, 37
@@ -305,7 +346,7 @@ def test_conv3d_down_matches_plain(gen, dtype, C, O):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("C,shape", [(8, (6, 10, 46)), (32, (10, 18, 70))])
+@pytest.mark.parametrize("C,shape", [(8, (6, 10, 46)), (32, (10, 18, 70)), (16, (4, 14, 30)), (32, (8, 26, 38))])
 def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     """K6 on shapes no tile divides: out0 against K2's plain version, out1
     against K7's plain version on the kernel's own out0 (so a flipped ulp of
