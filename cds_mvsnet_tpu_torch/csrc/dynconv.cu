@@ -1,6 +1,7 @@
 // K4: every branch of one DynamicConv layer (conv || curvature coefficients,
-// bias-free) as one direct conv over a shared input tile.
-// Wrapper, plain version and design note: ops/kernels/dynconv.py.
+// bias-free) as one direct conv over a shared input tile. Each output is one
+// fp32 FMA chain in (c, ky, kx) order from 0, bit for bit with the plain
+// version. Wrapper, plain version and design note: ops/kernels/dynconv.py.
 #include "common.cuh"
 
 constexpr int TX = 32, TY = 8;

@@ -17,8 +17,16 @@ widest branch (``max(k)//2``, the 7x7 union of taps for conv01), and all
 branch weights in shared memory as fp32; each thread computes every output
 channel of every branch at its pixel with fp32 FMAs, so the input is read
 from device memory about once. The CUDA cores' fp32 rate limits this
-version; ``wgmma`` is later work. The TPU kernel's space-to-depth rescatter
-and its block-sparse tile plan are Mosaic mechanics and are not carried over.
+version. The TPU kernel's space-to-depth rescatter and its block-sparse
+tile plan are Mosaic mechanics and are not carried over.
+
+Contract: bit for bit with the plain version. Each output is one fp32 FMA
+chain in the order ``(c, ky, kx)`` from 0, as the plain version's fp32 conv
+sums it, rounded once to bf16. One bf16 ulp is not enough: the FeatureNet
+mixes the branches with a softmax of the curvature at temperature 0.001,
+so a few outputs rounded the other way give another depth map. A
+tensor-core form (bf16 MMAs on a hi/lo split of the weights) stays within
+one ulp and still fails the cascade (``tests/test_torch_dynconv_split.py``).
 """
 
 from __future__ import annotations

@@ -19,15 +19,39 @@ Bound on the H100: memory. The ``(C, D, h, w)`` output write dominates; at
 the DTU protocol point (the cascade at 576x768 under refinement) one fp32
 launch moves about 184 / 262 / 156 MB at stages 1/2/3 (C·D = 32·48 / 16·32 /
 8·8; 55 / 78 / 46 µs at 3.35 TB/s), bf16 about half of the output and the
-source. Design, first and simple: one thread per output ``(d, y, x)``
-computes the four corners and weights once (``footprint`` in
-``csrc/warp.cuh``, rounded op by op as the plain version), reads each corner
-as one contiguous C-vector in 16-byte loads (the source map is at most 14 MB
-and stays in L2) and writes its C values strided by ``D·h·w``, so a warp's
-stores are consecutive. It sums the corners op by op in fp32, as the plain
-version does, and rounds once at the store. The TPU's band windows, 2x2
-channel packing (``pack_src_for_warp``), lane gathers and x-pair bit packing
-are Mosaic mechanics and are not carried over.
+source. The source map is at most 14 MB and stays in L2, so what the
+kernel's loads cost is L1 and L2 traffic: a corner is one contiguous
+C-vector of up to 128 bytes, and one thread per pixel reading all of its
+corners in 16-byte pieces would make each warp-wide load touch up to 32
+cache lines where 4 hold the bytes it uses.
+
+Design: lane groups for wide pixels. Where a pixel's C-vector is wider
+than 32 bytes (fp32 at C = 32 and 16, bf16 at C = 32: the fp32 route's
+stages 1 and 2), ``G = C·sizeof(T)/32`` lanes take one output pixel (4 / 2 /
+2) and each loads two 16-byte pieces of each corner, so a group reads each
+corner vector whole and a warp's load touches one line per corner and
+pixel. Every lane of the group computes the same footprint (``footprint``
+in ``csrc/warp.cuh``, rounded op by op as the plain version), issues its
+eight loads from addresses clamped into the image before it sums any, then
+sums its channels over the in-bounds corners in corner order, op by op in
+fp32 (``fetch_pieces``, ``sum_pieces``), and rounds once: ``gather<C,
+true>``'s arithmetic, channel by channel, so the output equals the plain
+version bit for bit. A pixel of at most 32 bytes (fp32 at C = 8, bf16 at C
+= 16 and 8) is taken by one thread, as ``gather<C, true>`` does, each
+corner in one or two 16-byte loads. Coordinates are read and outputs
+written with evict-first hints (``__ldcs``, ``__stcs``), so the source
+stays in L2 while the output streams past it. Stores go straight from
+registers: consecutive lanes of the same piece store consecutive pixels,
+runs of 32 to 128 bytes per channel. Other forms were timed on the card
+against this one (``tools/time_gather_dynconv.py``; PERF.md §6): one
+16-byte piece a lane (G = 8 at fp32 C = 32) needs its results staged
+through shared memory to store runs of consecutive pixels, and staging
+(per block or per warp) cost more than it saved everywhere but fp32 C =
+32, where it only equalled this form; lane groups at 32 bytes a pixel or
+less, and two pixels a thread stored in pairs, lost to the thread per
+pixel. The TPU's band windows, 2x2 channel packing (``pack_src_for_warp``),
+lane gathers and x-pair bit packing are Mosaic mechanics and are not
+carried over.
 """
 
 from __future__ import annotations

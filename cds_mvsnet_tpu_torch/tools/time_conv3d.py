@@ -13,8 +13,9 @@ stream point's stage 1 (D = 128, 120x160), K2 at O = 16 at the conv2 shapes
 of the ``3`` fronts, and K6 at the serve stage shapes, with K2 then K7 of
 the same source beside it. Rounds alternate the order of the sources (A B,
 B A, ...); a time is the median over rounds of the mean of ``--reps``
-launches between CUDA events. cuDNN's call (``F.conv3d`` + ReLU on bf16
-weights; for K6 its two calls) is timed in each round too. One JSON line per
+launches between CUDA events (``tools/_timing.py``). cuDNN's call
+(``F.conv3d`` + ReLU on bf16 weights; for K6 its two calls) is timed in
+each round too. One JSON line per
 case and source, with the largest difference to the plain version (K2:
 one bf16 ulp allowed; K6: out0 equal to the same source's K2 and out1 to its
 K7, bit for bit); the card's ``nvidia-smi`` name and power limit come first.
@@ -23,10 +24,7 @@ K7, bit for bit); the card's ``nvidia-smi`` name and power limit come first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -36,68 +34,36 @@ import torch.nn.functional as F
 
 from ..models import strict_fp32
 from ..ops import kernels as K
-from ..ops.kernels import _build
+from ._timing import I, P, build, card, medians, stream_ptr, typed
 
-P, I = ctypes.c_void_p, ctypes.c_int
 H, W = 864, 1152
 SERVE = [(32, 48, H // 4, W // 4), (16, 32, H // 2, W // 2), (8, 8, H, W)]
-
-
-def build(dirs: list[Path], out: Path) -> list[dict]:
-    procs = []
-    for i, d in enumerate(dirs):
-        for name in ("conv3d", "conv3d_fused"):
-            lib = out / f"{name}{i}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(d / f"{name}.cu")]
-            procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), i,
-                          name, lib))
-    libs = [{} for _ in dirs]
-    for proc, i, name, lib in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {dirs[i]}/{name}.cu:\n{log}")
-        libs[i][name] = ctypes.CDLL(str(lib))
-    return libs
 
 
 def conv(lib, entry: str, vol, w, b, stride: int):
     """K2 (``conv3d_bn_relu_launch``) or K7 (``conv3d_down_launch``) of one
     source."""
-    fn = getattr(lib["conv3d"], entry)
-    fn.argtypes, fn.restype = [P, P, P, P, I, I, I, I, I, I, P], ctypes.c_int
+    fn = typed(lib["conv3d"], entry, [P, P, P, P, I, I, I, I, I, I, P])
     C, D, h, wd = vol.shape
     out = torch.empty((w.shape[0], (D - 1) // stride + 1, (h - 1) // stride + 1, (wd - 1) // stride + 1),
                       dtype=vol.dtype, device=vol.device)
     err = fn(*(P(t.data_ptr()) for t in (vol, w, b, out)), 0, w.shape[0], C, D, h, wd,
-             P(torch.cuda.current_stream().cuda_stream))
+             stream_ptr())
     if err:
         raise RuntimeError(f"{entry}: CUDA error {err}")
     return out
 
 
 def fused(lib, vol, w0, b0, w1, b1):
-    fn = lib["conv3d_fused"].conv3d_front_fused_launch
-    fn.argtypes, fn.restype = [P] * 7 + [I] * 5 + [P], ctypes.c_int
+    fn = typed(lib["conv3d_fused"], "conv3d_front_fused_launch", [P] * 7 + [I] * 5 + [P])
     C, D, h, w = vol.shape
     out0 = torch.empty((8, D, h, w), dtype=vol.dtype, device=vol.device)
     out1 = torch.empty((16, D // 2, h // 2, w // 2), dtype=vol.dtype, device=vol.device)
     err = fn(*(P(t.data_ptr()) for t in (vol, w0, b0, w1, b1, out0, out1)), 0, C, D, h, w,
-             P(torch.cuda.current_stream().cuda_stream))
+             stream_ptr())
     if err:
         raise RuntimeError(f"conv3d_front_fused_launch: CUDA error {err}")
     return out0, out1
-
-
-def mean_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -110,9 +76,7 @@ def main(argv=None) -> int:
         print("time_conv3d: needs the card", file=sys.stderr)
         return 2
     strict_fp32()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": card, "dirs": [str(d) for d in args.dirs]}), flush=True)
+    print(json.dumps({"card": card(), "dirs": [str(d) for d in args.dirs]}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -128,7 +92,7 @@ def main(argv=None) -> int:
     cases += [("k2_o16", f"serve{s}", (16, D // 2, h // 2, w // 2), 16) for s, (_, D, h, w) in enumerate(SERVE, 1)]
     cases += [("k6", f"serve{s}", shape, 8) for s, shape in enumerate(SERVE, start=1)]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(args.dirs, Path(tmp))
+        libs = build(args.dirs, ("conv3d", "conv3d_fused"), Path(tmp))
         for kernel, point, shape, O in cases:
             vol = uniform(shape)
             wb = weights(O, shape[0])
@@ -157,11 +121,7 @@ def main(argv=None) -> int:
                                                  padding=1).relu_()
             else:
                 runs["cudnn"] = lambda: F.conv3d(vol[None], *lw, padding=1).relu_()
-            times = {k: [] for k in runs}
-            for r in range(args.rounds):
-                for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
-                    times[k].append(mean_ms(runs[k], args.reps))
-            med = {k: statistics.median(v) for k, v in times.items()}
+            med = medians(runs, args.rounds, args.reps)
             for i, d in enumerate(args.dirs):
                 row = {"kernel": kernel, "point": point, "shape": list(shape), "O": O, "dir": str(d),
                        "ms": med[i], "cudnn_ms": med["cudnn"], **checks[i]}

@@ -13,19 +13,17 @@ forward), where the source has one, at the three of the train point
 (512x640 with refinement, per batch element), on inputs shaped and drawn
 as in ``chip_smoke.py``'s kernels phase. Rounds alternate the order of the
 sources (A B C, C B A, ...); a time is the median over rounds of the mean of
-``--reps`` launches between CUDA events. One JSON line per source, kernel
-and stage, with ``in_prod``'s share of values equal to the plain version's
-and its largest difference; the card's ``nvidia-smi`` name and power limit
-come first.
+``--reps`` launches between CUDA events (``tools/_timing.py``). One JSON
+line per source, kernel and stage, with ``in_prod``'s share of values equal
+to the plain version's and its largest difference; the card's
+``nvidia-smi`` name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -35,28 +33,12 @@ import torch
 from ..models import strict_fp32, to_tensors
 from ..ops import kernels as K
 from ..ops.geometry import relative_warp_transform
-from ..ops.kernels import _build
 from ..utils.synthetic import synthetic_batch, textured_plane_batch
+from ._timing import I, P, alternate, build, card, stream_ptr, typed
 
-P, I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [P, P, P, I, P, P, P, I, I, I, I, I, I, P]
 NDEPTHS = (48, 32, 8)
 D_FULL = 192
-
-
-def build(dirs: list[Path], out: Path) -> list[ctypes.CDLL]:
-    procs = []
-    for i, d in enumerate(dirs):
-        lib = out / f"warp{i}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(d / "warp.cu")]
-        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib, d))
-    libs = []
-    for proc, lib, d in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {d}:\n{log}")
-        libs.append(ctypes.CDLL(str(lib)))
-    return libs
 
 
 def cases(dev) -> list[tuple]:
@@ -100,18 +82,16 @@ def cases(dev) -> list[tuple]:
 def launcher(lib, kernel, src, ref, hyp, rt):
     """A closure launching ``kernel`` of ``lib`` on the case, and its
     ``in_prod``; None where the source has no such entry point."""
-    fn = getattr(lib, f"{kernel}_launch", None)
-    if fn is None:
+    if not hasattr(lib, f"{kernel}_launch"):
         return None
-    fn.argtypes, fn.restype = ARGTYPES, ctypes.c_int
+    fn = typed(lib, f"{kernel}_launch", ARGTYPES)
     H, W, C = src.shape
     _, h, w = ref.shape
     D = hyp.shape[0]
     in_prod = torch.empty((C, D, h, w), dtype=torch.bfloat16, device=src.device)
     out = torch.empty((D, h, w) if kernel == "warp_sim" else (h, w), dtype=torch.float32, device=src.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = [ctypes.c_void_p(t.data_ptr()) for t in (src, ref, hyp)] + [int(hyp.ndim == 3)]
-    args += [ctypes.c_void_p(t.data_ptr()) for t in (rt, in_prod, out)] + [C, H, W, D, h, w, stream]
+    args = [P(t.data_ptr()) for t in (src, ref, hyp)] + [int(hyp.ndim == 3)]
+    args += [P(t.data_ptr()) for t in (rt, in_prod, out)] + [C, H, W, D, h, w, stream_ptr()]
 
     def run():
         err = fn(*args)
@@ -119,18 +99,6 @@ def launcher(lib, kernel, src, ref, hyp, rt):
             raise RuntimeError(f"{kernel}: CUDA error {err}")
 
     return run, in_prod
-
-
-def mean_ms(run, reps: int) -> float:
-    run()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -143,21 +111,16 @@ def main(argv=None) -> int:
         print("time_warp: no CUDA device", file=sys.stderr)
         return 2
     strict_fp32()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "sources": [str(d) for d in args.dirs]}), flush=True)
+    print(json.dumps({"card": card(), "sources": [str(d) for d in args.dirs]}), flush=True)
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(args.dirs, Path(tmp))
+        libs = [lib["warp"] for lib in build(args.dirs, ("warp",), Path(tmp))]
         for kernel, stage, src, ref, hyp, rt in cases(dev):
             want = (K.warp_entropy_plain if kernel == "warp_entropy" else K.warp_sim_plain)(src, ref, hyp, rt)[0]
-            runs = [launcher(lib, kernel, src, ref, hyp, rt) for lib in libs]
-            times = [[] for _ in libs]
-            order = [i for i, r in enumerate(runs) if r is not None]
-            for rnd in range(args.rounds):
-                for i in order if rnd % 2 == 0 else order[::-1]:
-                    times[i].append(mean_ms(runs[i][0], args.reps))
-            for i in order:
+            runs = {i: r for i, r in enumerate(launcher(lib, kernel, src, ref, hyp, rt) for lib in libs)
+                    if r is not None}
+            times = alternate({i: r[0] for i, r in runs.items()}, args.rounds, args.reps)
+            for i in runs:
                 d = (runs[i][1].float() - want.float()).abs()
                 print(json.dumps({
                     "source": str(args.dirs[i]), "kernel": kernel, "stage": stage,

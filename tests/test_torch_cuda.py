@@ -136,6 +136,42 @@ def test_dynconv_branches_matches_plain(gen, ks, OA):
     assert within_one_ulp(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
 
 
+def dynconv_rig(gen, N, I_, OA, ks, shape, scale=1.0):
+    x = uniform(gen, (N, I_, *shape))
+    ws = [uniform(gen, (OA, I_, k, k), -scale * (I_ * k * k) ** -0.5, scale * (I_ * k * k) ** -0.5, torch.float32)
+          for k in ks]
+    return x, ws
+
+
+@pytest.mark.parametrize("shape", [(13, 37), (9, 131), (21, 70)])
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("I_,OA,ks", [(8, 11, (3, 5, 7)), (8, 11, (1, 3, 5, 7)), (16, 19, (5, 1)), (32, 35, (1, 5))])
+def test_dynconv_branches_on_ragged_shapes(gen, I_, OA, ks, N, shape):
+    """K4 on shapes its 8 x 32 output tile does not divide, odd and even W,
+    with conv01's geometry, kernel sizes 1 to 7 and input widths 8, 16, 32.
+    Bit for bit: the kernel sums each output in the plain version's order,
+    (c, ky, kx) from 0, which the bf16 cascade needs (PERF.md §6)."""
+    x, ws = dynconv_rig(gen, N, I_, OA, ks, shape)
+    before = K.dynconv_branches.launches
+    got = K.dynconv_branches(x, ws)
+    torch.cuda.synchronize()
+    assert K.dynconv_branches.launches == before + 1
+    assert got.shape == (N, len(ks) * OA, *shape)
+    assert torch.equal(got, K.dynconv_branches_plain(x, ws))
+
+
+@pytest.mark.parametrize("I_,OA,ks", [(8, 11, (3, 5, 7)), (16, 19, (1, 3, 5)), (32, 35, (3,))])
+def test_dynconv_branches_cancellation(gen, I_, OA, ks):
+    """Mixed-sign weights at 4x the usual bound: many outputs sit near 0,
+    where bf16 weights alone miss one ulp; the kernel's fp32 chain still
+    rounds as the plain version does."""
+    x, ws = dynconv_rig(gen, 3, I_, OA, ks, (21, 70), scale=4.0)
+    want = K.dynconv_branches_plain(x, ws)
+    assert torch.equal(K.dynconv_branches(x, ws), want)
+    bf16_only = K.dynconv_branches_plain(x, [w.to(torch.bfloat16).float() for w in ws])
+    assert not within_one_ulp(bf16_only, want)
+
+
 RT = (1.01, 0.02, -1.5, -0.015, 0.99, 2.0, 1e-4, -2e-4, 1.0, 8.0, -4.0, 0.05)
 
 
@@ -205,12 +241,12 @@ def test_fused_warp_train_gradients_match_plain_autograd(gen, C):
         assert float((got - want).norm() / want.norm()) <= 1e-2
 
 
-def gather_rig(gen, C, dtype):
+def gather_rig(gen, C, dtype, D=5, h=19, w=37):
     """K9's inputs: a source smaller than the output grid in one axis and
     larger in the other, coordinates that leave the image, the ``-1e6``
     padding of ``warp_pallas_padded`` in the last columns, and z near 0:
     huge and non-finite coordinates."""
-    H, W, D, h, w = 23, 41, 5, 19, 37
+    H, W = 23, 41
     src = uniform(gen, (H, W, C), dtype=dtype)
     px = uniform(gen, (D, h, w), -3.0, W + 2.0, torch.float32)
     py = uniform(gen, (D, h, w), -3.0, H + 2.0, torch.float32)
@@ -234,6 +270,26 @@ def test_warp_gather_matches_plain(gen, C, dtype):
     # same corners, same fp32 weights, the same op-by-op sum, one rounding:
     # equal bit for bit
     assert out.dtype == dtype
+    assert torch.equal(out, want)
+    assert bool((out[:, :, :, -3:] == 0).all())
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 7, 61), (2, 9, 33), (2, 5, 517)])
+def test_warp_gather_lane_group_tails(gen, C, dtype, shape):
+    """K9 on output counts n = D·h·w that leave the last block partly full,
+    down to one pixel of a lane group: n = 1281 (one pixel in the last
+    block of 64 pixels of the fp32 C = 32 lane groups), 594 and 5170;
+    gather_rig's non-finite, far-off and edge coordinates included. Bit
+    for bit."""
+    src, px, py = gather_rig(gen, C, dtype, *shape)
+    before = K.warp_gather.launches
+    out = K.warp_gather(src, px, py)
+    torch.cuda.synchronize()
+    assert K.warp_gather.launches == before + 1
+    want = K.warp_gather_plain(src, px, py)
+    assert out.dtype == dtype and out.shape == (C, *shape)
     assert torch.equal(out, want)
     assert bool((out[:, :, :, -3:] == 0).all())
 
