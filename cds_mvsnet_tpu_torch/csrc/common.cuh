@@ -38,6 +38,30 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// Asynchronous copies into shared memory (cp.async): `bytes` (4 or 16) from
+// global `src` to shared `dst`, or zeros there where `valid` is false (no
+// read then: src-size 0). cp_async_wait_all waits for this thread's copies.
+template <int bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  static_assert(bytes == 4 || bytes == 16, "cp.async copies 4 or 16 bytes here");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Close this thread's group of copies; wait until at most `pending` of its
+// groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
 // A stored value as fp32, and fp32 rounded to the stored type.
 __device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }

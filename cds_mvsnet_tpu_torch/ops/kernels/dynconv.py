@@ -9,16 +9,23 @@ weight concatenated with its 3-channel curvature-coefficient weight
 (``OA = O + 3`` outputs). All branches read one input; the output stacks the
 branches' ``OA`` channels in order. The curvature mixture stays in torch.
 
-Bound on the H100: memory. At conv01 of the 1152x864 main path (8 images of
-8x864x1152 in, 3 x 11 channels out) it moves about 653 MB for 116 GFLOP
-(about 195 µs at 3.35 TB/s, 118 µs at the bf16 tensor rate). Design, first
-and simple: a block stages one 32x8 output tile's input, with the halo of the
-widest branch (``max(k)//2``, the 7x7 union of taps for conv01), and all
-branch weights in shared memory as fp32; each thread computes every output
-channel of every branch at its pixel with fp32 FMAs, so the input is read
-from device memory about once. The CUDA cores' fp32 rate limits this
-version. The TPU kernel's space-to-depth rescatter and its block-sparse
-tile plan are Mosaic mechanics and are not carried over.
+Bound on the H100: the CUDA cores. At conv01 of the 1152x864 main path (8
+images of 8x864x1152 in, 3 x 11 channels out) it moves about 653 MB (195 µs
+at 3.35 TB/s) for 58.2 G fp32 FMAs; the contract below rules out the tensor
+cores, so its floor is the fp32 rate, 1.73 ms at 67 TFLOP/s. Design: a
+block stages the input tile of 32 columns x 32 output rows (16 or 8 where a
+wide layer's shared memory asks it), with the halo of the widest branch
+(``max(k)//2``), as fp32 converted exactly from 16-byte bf16 loads where
+``W % 8 == 0``, and lays every branch's weights out in shared memory as
+``[c][ky][kx][group][12]``, read in place from the caller's ``(OA, I, k,
+k)`` tensors. A thread computes 4 adjacent pixels of one row for a group of
+at most 12 output channels (all 11 at conv01; 10 + 9 at OA = 19; 12 + 12 +
+11 at OA = 35): per ``(c, ky)`` it loads the row's ``k + 3`` inputs into
+registers once, and per ``kx`` three warp-uniform 16-byte weight vectors,
+each weight feeding 4 FMAs. ``k`` is a template parameter (1, 3, 5, 7), so
+the row and the ``kx`` loop unroll. Two blocks share an SM at conv01. The
+TPU kernel's space-to-depth rescatter and its block-sparse tile plan are
+Mosaic mechanics and are not carried over.
 
 Contract: bit for bit with the plain version. Each output is one fp32 FMA
 chain in the order ``(c, ky, kx)`` from 0, as the plain version's fp32 conv
@@ -39,19 +46,38 @@ import torch.nn.functional as F
 from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 
-__all__ = ["dynconv_branches", "dynconv_branches_plain", "shared_bytes"]
+__all__ = ["dynconv_branches", "dynconv_branches_plain", "shared_bytes", "tile_rows"]
 
 OUT_WIDTHS = (11, 19, 35)  # O + 3 for the FeatureNet's O = 8, 16, 32
+KERNEL_SIZES = (1, 3, 5, 7)  # the kernel's instantiations of k
 MAX_BRANCHES = 4
-TILE = (8, 32)  # output rows x cols per block, as csrc/dynconv.cu
+TILE_W = 32  # output columns per block, as csrc/dynconv.cu
+GROUP_W = 12  # weight slots per (c, ky, kx) and channel group
 SMEM_LIMIT = 227 * 1024
 
 
-def shared_bytes(I_: int, ks, OA: int) -> int:
-    """Shared memory one block of the kernel needs."""
+def _bytes(I_: int, ks, OA: int, rows: int) -> int:
     r = max(ks) // 2
-    tile = I_ * (TILE[0] + 2 * r) * (TILE[1] + 2 * r)
-    return 4 * (tile + sum(I_ * k * k * OA for k in ks))
+    tile = (I_ * (rows + 2 * r) * (TILE_W + 2 * r + 1) + 3) // 4 * 4
+    slots = -(-OA // GROUP_W) * GROUP_W
+    return 4 * (tile + sum(I_ * k * k * slots for k in ks))
+
+
+def tile_rows(I_: int, ks, OA: int) -> int:
+    """Output rows per block as ``csrc/dynconv.cu``'s ``pick_rows`` chooses
+    them: the most of 32, 16, 8 at which two blocks share an SM, else the
+    most that fit one block (8 if none fits)."""
+    for limit in (SMEM_LIMIT // 2 - 1024, SMEM_LIMIT):
+        for rows in (32, 16, 8):
+            if _bytes(I_, ks, OA, rows) <= limit:
+                return rows
+    return 8
+
+
+def shared_bytes(I_: int, ks, OA: int) -> int:
+    """Shared memory one block of the kernel takes: the fp32 input tile at
+    :func:`tile_rows` rows and every branch's weights."""
+    return _bytes(I_, ks, OA, tile_rows(I_, ks, OA))
 
 
 def dynconv_branches_plain(x: torch.Tensor, ws) -> torch.Tensor:
@@ -63,27 +89,27 @@ def dynconv_branches_plain(x: torch.Tensor, ws) -> torch.Tensor:
 
 def dynconv_branches(x: torch.Tensor, ws) -> torch.Tensor:
     """``x (N, I, H, W)`` bf16 and branch weights ``ws[b] (OA, I, k_b, k_b)``
-    fp32 (odd ``k_b``) -> ``(N, len(ws)·OA, H, W)`` bf16."""
+    fp32 (``k_b`` in 1, 3, 5, 7) -> ``(N, len(ws)·OA, H, W)`` bf16. The
+    kernel reads each ``ws[b]`` where it lies."""
     require(x.ndim == 4, f"dynconv_branches: x {tuple(x.shape)}")
     N, I_, H, W = x.shape
     require(1 <= len(ws) <= MAX_BRANCHES, f"dynconv_branches: {len(ws)} branches")
     OA = ws[0].shape[0]
     ks = [w.shape[-1] for w in ws]
     for w, k in zip(ws, ks):
-        require(tuple(w.shape) == (OA, I_, k, k) and k % 2 == 1,
-                f"dynconv_branches: weight {tuple(w.shape)} for I={I_}, OA={OA}")
+        require(tuple(w.shape) == (OA, I_, k, k) and k in KERNEL_SIZES,
+                f"dynconv_branches: weight {tuple(w.shape)} for I={I_}, OA={OA}, k in {KERNEL_SIZES}")
         require(w.dtype == torch.float32 and w.is_contiguous(), "dynconv_branches: weights must be contiguous fp32")
     require(OA in OUT_WIDTHS, f"dynconv_branches: OA={OA} not in {OUT_WIDTHS}")
     require(x.dtype == torch.bfloat16 and x.is_contiguous(), "dynconv_branches: x must be contiguous bf16")
     require(shared_bytes(I_, ks, OA) <= SMEM_LIMIT, "dynconv_branches: layer exceeds shared memory")
     if not on_card("dynconv_branches", x, *ws):
         return dynconv_branches_plain(x, ws)
-    # weights as [c][ky][kx][o] per branch, back to back
-    packed = torch.cat([w.permute(1, 2, 3, 0).reshape(-1) for w in ws]).contiguous()
     out = torch.empty((N, len(ws) * OA, H, W), dtype=torch.bfloat16, device=x.device)
     kbuf = (ctypes.c_int * MAX_BRANCHES)(*ks)
-    lib, fn = entry("dynconv", "dynconv_branches_launch", [P, P, P, I, I, I, I, I, I, P, P])
-    err = fn(ptr(x), ptr(packed), ptr(out), N, I_, H, W, OA, len(ws),
+    wbuf = (ctypes.c_void_p * MAX_BRANCHES)(*(w.data_ptr() for w in ws))
+    lib, fn = entry("dynconv", "dynconv_launch", [P, P, P, I, I, I, I, I, I, P, P])
+    err = fn(ptr(x), ctypes.cast(wbuf, ctypes.c_void_p), ptr(out), N, I_, H, W, OA, len(ws),
              ctypes.cast(kbuf, ctypes.c_void_p), stream(x.device))
     _build.check(lib, err, "dynconv_branches")
     dynconv_branches.launches += 1

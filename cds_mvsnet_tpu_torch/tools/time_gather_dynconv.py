@@ -12,12 +12,12 @@ stage shapes of the DTU protocol point (a plane sweep between two views of
 ``textured_plane_batch`` at 1152x1536, the cascade at 576x768), beside
 ``F.grid_sample`` on the NCHW source (fp32); K4 on conv01 (8 images, I = 8,
 k = 3, 5, 7, OA = 11) at the serve (864x1152), stream (480x640) and
-protocol (576x768) inputs, beside three bf16 ``F.conv2d`` calls; K4's
-weights are packed ``[c][ky][kx][o]`` as its wrapper packs them, once,
-outside the timed launches. Rounds alternate the order of the sources (A B,
-B A, ...); a time is the median over rounds of the mean of ``--reps``
-launches between CUDA events.
-One JSON line per case and source, with the largest difference to the plain
+protocol (576x768) inputs, beside three bf16 ``F.conv2d`` calls; K4 reads
+the caller's ``(OA, I, k, k)`` weights in place, and a source whose K4 took
+them packed (commit 27ce2a7) is reached through one adapter. Rounds
+alternate the order of the sources (A B, B A, ...); a time is the median
+over rounds of the mean of ``--reps`` launches between CUDA events. One JSON
+line per case and source, with the largest difference to the plain
 version and its checks (K9: bit for bit; K4: one bf16 ulp, and bit for
 bit); the card's ``nvidia-smi`` name and power limit come first. The
 harness is ``tools/_timing.py``.
@@ -59,7 +59,32 @@ def gather(lib, src, px, py):
 
 
 def dynconv_runner(lib, x, ws):
-    """A closure that launches K4 of ``lib`` on ``(x, ws)``."""
+    """A closure that launches K4 of ``lib`` on ``(x, ws)``: through
+    ``dynconv_launch``, which reads the caller's weights in place, or, for a
+    source without it, through :func:`packed_runner_27ce2a7`."""
+    if not hasattr(lib["dynconv"], "dynconv_launch"):
+        return packed_runner_27ce2a7(lib, x, ws)
+    N, I_, H, W = x.shape
+    kbuf = (ctypes.c_int * 4)(*KS)
+    wbuf = (ctypes.c_void_p * 4)(*(w.data_ptr() for w in ws))
+    fn = typed(lib["dynconv"], "dynconv_launch", [P, P, P, I, I, I, I, I, I, P, P])
+
+    def run():
+        out = torch.empty((N, len(ws) * OA, H, W), dtype=torch.bfloat16, device=x.device)
+        err = fn(P(x.data_ptr()), ctypes.cast(wbuf, P), P(out.data_ptr()), N, I_, H, W, OA, len(ws),
+                 ctypes.cast(kbuf, P), stream_ptr())
+        if err:
+            raise RuntimeError(f"K4: CUDA error {err}")
+        return out
+
+    return run
+
+
+def packed_runner_27ce2a7(lib, x, ws):
+    """The adapter to K4 as commit 27ce2a7 built it: ``dynconv_branches_launch``
+    takes the weights packed ``[c][ky][kx][o]``, branches back to back; they
+    are packed here once, outside the timed launches. It goes at the next
+    change of K4."""
     N, I_, H, W = x.shape
     kbuf = (ctypes.c_int * 4)(*KS)
     fn = typed(lib["dynconv"], "dynconv_branches_launch", [P, P, P, I, I, I, I, I, I, P, P])

@@ -12,7 +12,9 @@ Phases, one JSON line each:
    card, at the shapes the main path gives it (1152x864, V=5, D=192,
    ndepths 48/32/8), with the tolerance stated beside each comparison and the
    kernel's, the plain version's and, where one PyTorch call computes the
-   same function, that call's time;
+   same function, that call's time; K3 and K4, which run on the CUDA
+   cores, add a ``bound_halves`` line each with the bytes bound and the
+   fp32 FMA floor apart;
    K9 (fp32 and bf16, bit for bit) and K2 in fp32 at the three stage shapes
    of the DTU protocol point (the cascade at 576x768 under refinement), and
    K4 on that point's conv01 input;
@@ -69,7 +71,8 @@ Phases, one JSON line each:
    maps, each push's launches exactly PER_PUSH, each map held to the serve
    gate against the plain path of its dtype on the same window; then the
    latency of each push, frames/s, peak memory, depth error against the
-   scene's exact depth (reported) and one profiled push;
+   scene's exact depth (reported) and one profiled push, started on an idle
+   card, with the hand-written launches the profile saw beside one push's;
 7. custom: the custom-scene path (COLMAP workspace -> ``data/colmap.py`` ->
    ``test_cli --dataset general`` at 864x1152 in bf16 -> normal fusion ->
    ``score_points`` and ``eval_depth_map`` against the scene's geometry);
@@ -153,9 +156,12 @@ FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # the kernels' symbols as the profiler names them (csrc/*.cu): K2 in bf16
 # is conv3d_mma_kernel, in fp32 (and K7) conv3d_bn_relu_kernel; K6 in bf16
-# conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel; K4 dynconv_kernel<OA>,
-# K9 gather_kernel<T, C> (the lane-group gather)
-KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "void conv3d_mma_kernel", "exit_softargmin_kernel",
+# conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel; K3
+# exit_softargmin_kernel<cols, rows, planes> (a plain function, named
+# without "void", in earlier commits, whose csrc this script also reads), K4
+# dynconv_kernel<OA>, K9 gather_kernel<T, C> (the lane-group gather)
+KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "void conv3d_mma_kernel",
+                  "void exit_softargmin_kernel", "exit_softargmin_kernel",
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
                   "lane_slice_kernel", "void row_gather_kernel", "int16_arith_kernel")
@@ -236,6 +242,14 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def emit_bound_halves(row: dict, name: str) -> None:
+    """The two halves of a CUDA-core kernel's bound on a line of their own:
+    the bytes over the memory rate and the fp32 FMA floor (operations over
+    the fp32 rate); the row's ``bound_ms`` is the larger."""
+    emit({"phase": "bound_halves", "kernel": name, "stage": row["stage"], "point": row.get("point", "serve"),
+          "bytes_bound_ms": row["bytes"] / PEAK_BYTES_PER_S * 1e3, "fma_floor_ms": row["flops"] / PEAK_FP32_FLOPS * 1e3})
+
+
 def phase_device(torch, kbuild):
     nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True, text=True, check=True)
     t0 = time.perf_counter()
@@ -288,6 +302,7 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
         emit({"phase": "kernels", "kernel": name, **row})
         if not ok:
             failures.append(f"{name}@{row.get('point', 'main')}:stage{stage}")
+        return row
 
     dvals = torch.linspace(425.0, 905.0, D_FULL, device=dev)
     interval = float(dvals[1] - dvals[0])
@@ -458,14 +473,19 @@ def cascade_kernels(torch, dev, uniform, record, s, shape, hyp, rt):
     safe = (frac > 1e-3) & (frac < 1 - 1e-3)  # no truncation flip possible
     d_conf = (ck - cp).abs()
     ok = bool(same.all()) and float(d_conf[safe].max()) <= 1e-4
-    record("exit_softargmin", s, float(d_dep.max()), "depth |d| <= 1e-2 mm; conf |d| <= 1e-4 off truncation boundaries", ok,
+    # one output channel: the CUDA cores' fp32 rate, not the tensor cores'
+    k3_bytes = yx.numel() * 2 + wp.numel() * 4 + hyp.numel() * 4 + 2 * h * w * 4
+    k3_flops = 2 * 216 * D * h * w
+    row = record("exit_softargmin", s, float(d_dep.max()), "depth |d| <= 1e-2 mm; conf |d| <= 1e-4 off truncation boundaries", ok,
            timed(torch, lambda: K.exit_softargmin(yx, wp, hyp), 5),
            timed(torch, lambda: K.exit_softargmin_plain(yx, wp, hyp), 3),
-           None, yx.numel() * 2 + wp.numel() * 4 + hyp.numel() * 4 + 2 * h * w * 4,
-           2 * 216 * D * h * w, PEAK_BF16_FLOPS,
+           None, k3_bytes, k3_flops, PEAK_FP32_FLOPS,
            {"conf_max_abs_err_safe": float(d_conf[safe].max()),
             "conf_diff_frac": float((d_conf > 1e-4).float().mean()),
-            "near_boundary_frac": float((~safe).float().mean())})
+            "near_boundary_frac": float((~safe).float().mean()),
+            "device_ms": kernel_device_ms(torch, lambda: K.exit_softargmin(yx, wp, hyp), "exit_softargmin_kernel",
+                                          reps=5)})
+    emit_bound_halves(row, "exit_softargmin")
     del yx, dk, dp, ck, cp, logits
 
 
@@ -486,14 +506,17 @@ def dynconv_kernel(torch, uniform, record, N, H, W):
     # near-argmax branch mixture needs (PERF.md §6): bit for bit
     ok = torch.equal(o_k, o_p)
     wsb = [w_.to(torch.bfloat16) for w_ in ws]
-    record("dynconv_branches", 3, float(d.max()), "bit for bit (torch.equal)", ok,
+    # the contract keeps K4 on the CUDA cores: its floor is the fp32 FMA rate
+    k4_bytes = x.numel() * 2 + sum(w_.numel() * 4 for w_ in ws) + o_k.numel() * 2
+    k4_flops = 2 * N * H * W * 11 * 8 * (9 + 25 + 49)
+    row = record("dynconv_branches", 3, float(d.max()), "bit for bit (torch.equal)", ok,
            timed(torch, lambda: K.dynconv_branches(x, ws), 5),
            timed(torch, lambda: K.dynconv_branches_plain(x, ws), 3),
            timed(torch, lambda: [F.conv2d(x, w_, padding=w_.shape[-1] // 2) for w_ in wsb], 5),
-           x.numel() * 2 + sum(w_.numel() * 4 for w_ in ws) + o_k.numel() * 2,
-           2 * N * H * W * 11 * 8 * (9 + 25 + 49), PEAK_BF16_FLOPS,
+           k4_bytes, k4_flops, PEAK_FP32_FLOPS,
            {"exact_frac": float((d == 0).float().mean()),
             "device_ms": kernel_device_ms(torch, lambda: K.dynconv_branches(x, ws), "dynconv_kernel", reps=5)})
+    emit_bound_halves(row, "dynconv_branches")
     del x, o_k, o_p, d
 
 
@@ -967,9 +990,11 @@ def device_profile(torch, run, top: int = 15) -> dict:
                    if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0), reverse=True)
     device_ms = sum(r[0] for r in rows)
     groups = {"hand_written": 0.0, "convolution": 0.0, "elementwise": 0.0, "other": 0.0}
-    for ms, _, key in rows:
+    hand_written_calls = 0
+    for ms, n, key in rows:
         if key.startswith(KERNEL_SYMBOLS):
             groups["hand_written"] += ms
+            hand_written_calls += n
         elif any(tag in key for tag in ("cudnn", "xmma", "cutlass", "convolve", "gemm")):
             groups["convolution"] += ms
         elif "elementwise" in key or "reduce_kernel" in key:
@@ -981,6 +1006,7 @@ def device_profile(torch, run, top: int = 15) -> dict:
         "device_ms": device_ms if rows else "not measured",
         "busy_share": device_ms / wall_ms if rows else "not measured",
         "groups_ms": groups if rows else "not measured",
+        "hand_written_calls": hand_written_calls,
         "top": [{"name": k[:100], "ms": ms, "calls": n, "share": ms / device_ms} for ms, n, k in rows[:top]],
         "host_top": [{"name": evt.key[:60], "self_cpu_ms": evt.self_cpu_time_total / 1e3, "calls": evt.count}
                      for evt in sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
@@ -1496,7 +1522,9 @@ def phase_stream(torch, scene, dev):
     (``kernels=False``) of its dtype on the same window. Pass 2, after a
     reset, times each push on the host clock (the numpy return synchronises)
     with the peak memory; the host and total time of a forward on the last
-    window; one more push runs under ``torch.profiler``."""
+    window; one more push runs under ``torch.profiler`` after a synchronise,
+    and its profile counts the hand-written launches it saw
+    (``hand_written_calls``) beside one push's (``PER_PUSH``)."""
     import numpy as np
 
     from cds_mvsnet_tpu_torch.eval.streaming import StreamingConfig, StreamingReconstructor
@@ -1554,7 +1582,12 @@ def phase_stream(torch, scene, dev):
         imgs, proj, dv = rec.inputs()
         forward = forward_overlap(torch, rec.model, {"imgs": imgs, "proj_matrices": proj, "depth_values": dv},
                                   dtypes={tag: rec.dtype})[tag]
+        # nothing of the pushes before may run inside the profiled window
+        torch.cuda.synchronize()
         profile = device_profile(torch, lambda: rec.push(scene["imgs"][0], scene["cams"][0]))
+        # the hand-written launches the profile saw against one push's: fewer
+        # means the window held part of a push
+        profile["hand_written_calls_per_push"] = sum(PER_PUSH[tag].values())
         runs[tag] = {"latency_ms_per_push": lat, "frames_per_s": 1e3 * len(lat) / sum(lat),
                      "frames_per_s_median": 1e3 / sorted(lat)[len(lat) // 2], "peak_mem_bytes": peak,
                      "pushes_none": nones, "maps": maps, "launches_per_push": PER_PUSH[tag],

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from cds_mvsnet_tpu_torch.ops import kernels as K
+from cds_mvsnet_tpu_torch.ops.kernels.regress import MAX_D
 
 pytestmark = pytest.mark.cuda
 
@@ -128,12 +129,83 @@ def test_exit_softargmin_matches_plain(gen, per_pixel):
     assert float((conf - conf_p).abs().max()) <= 1e-4
 
 
+def exit_rig(gen, D, h, w, per_pixel, peak=None):
+    """K3's inputs: y and the prob weights as the kernels phase draws them,
+    or, with ``peak``, logits peaked at that plane (y high there, low
+    elsewhere, positive weights); planes 400-900, or per-pixel windows."""
+    if peak is None:
+        y = uniform(gen, (8, D, h, w), -2.0, 2.0)
+        wp = uniform(gen, (1, 8, 3, 3, 3), -0.3, 0.3, torch.float32)
+    else:
+        y = uniform(gen, (8, D, h, w), -1.5, -1.0)
+        y[:, peak] = 2.0
+        wp = uniform(gen, (1, 8, 3, 3, 3), 0.05, 0.3, torch.float32)
+    hyp = torch.linspace(400.0, 900.0, D, device="cuda")
+    if per_pixel:
+        hyp = (hyp[:, None, None] + uniform(gen, (1, h, w), -50.0, 50.0, torch.float32)).contiguous()
+    return y, wp, hyp
+
+
+def exit_within_tolerance(y, wp, hyp, depth, conf):
+    """chip_smoke.py's K3 check: depth within 1e-2 mm everywhere, confidence
+    within 1e-4 where the expected plane index is no closer than 1e-3 to an
+    integer (elsewhere the truncated index may flip and move the window)."""
+    depth_p, conf_p = K.exit_softargmin_plain(y, wp, hyp)
+    D = y.shape[1]
+    logits = torch.nn.functional.conv3d(y.float()[None], wp, padding=1)[0, 0]
+    idx = (torch.softmax(logits, 0) * torch.arange(D, device="cuda", dtype=torch.float32)[:, None, None]).sum(0)
+    frac = idx - idx.floor()
+    safe = (frac > 1e-3) & (frac < 1 - 1e-3)
+    return (float((depth - depth_p).abs().max()) <= 1e-2
+            and float(((conf - conf_p).abs() * safe).max()) <= 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(13, 37), (3, 70), (9, 33), (6, 40), (5, 136)])
+@pytest.mark.parametrize("D", [8, 9, 48, 128, 200])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_exit_softargmin_tiles(gen, D, shape, per_pixel):
+    """Every tile the kernel picks by D (64 x 4 pixels at D = 8 and 9, 64 x 2
+    at 48, 32 x 1 at 128 and 200), chunks of planes that D does not fill
+    (9, 200), ragged h x w (widths that take the 16-byte staging and widths
+    that do not)."""
+    y, wp, hyp = exit_rig(gen, D, *shape, per_pixel)
+    before = K.exit_softargmin.launches
+    depth, conf = K.exit_softargmin(y, wp, hyp)
+    torch.cuda.synchronize()
+    assert K.exit_softargmin.launches == before + 1
+    assert exit_within_tolerance(y, wp, hyp, depth, conf)
+
+
+@pytest.mark.parametrize("D", [8, 48, 128])
+@pytest.mark.parametrize("at_end", [False, True])
+def test_exit_softargmin_window_clamps(gen, D, at_end):
+    """Logits peaked at plane 0 or D - 1: the confidence window [idx-1,
+    idx+2] is cut by the volume's ends."""
+    y, wp, hyp = exit_rig(gen, D, 11, 37, False, peak=D - 1 if at_end else 0)
+    depth, conf = K.exit_softargmin(y, wp, hyp)
+    assert exit_within_tolerance(y, wp, hyp, depth, conf)
+    assert float(conf.min()) > 0.5  # the mass sits in the clamped window
+
+
+def test_exit_softargmin_max_planes(gen):
+    """The most planes the wrapper takes run (one row of 32 pixels a
+    block); more are refused, on the card too."""
+    D = MAX_D
+    y, wp, hyp = exit_rig(gen, D, 5, 7, True)
+    depth, conf = K.exit_softargmin(y, wp, hyp)
+    assert exit_within_tolerance(y, wp, hyp, depth, conf)
+    y, wp, hyp = exit_rig(gen, D + 8, 2, 3, False)
+    with pytest.raises(ValueError, match="MAX_D"):
+        K.exit_softargmin(y, wp, hyp)
+
+
 @pytest.mark.parametrize("ks,OA", [((3, 5, 7), 11), ((1, 3), 19), ((1, 3), 35)])
 def test_dynconv_branches_matches_plain(gen, ks, OA):
     I_ = 8 if OA == 11 else OA - 3
     x = uniform(gen, (3, I_, 21, 70))
     ws = [uniform(gen, (OA, I_, k, k), -(I_ * k * k) ** -0.5, (I_ * k * k) ** -0.5, torch.float32) for k in ks]
-    assert within_one_ulp(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
+    # bit for bit: the bf16 cascade needs the plain version's rounding (PERF.md §6)
+    assert torch.equal(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
 
 
 def dynconv_rig(gen, N, I_, OA, ks, shape, scale=1.0):
@@ -157,6 +229,22 @@ def test_dynconv_branches_on_ragged_shapes(gen, I_, OA, ks, N, shape):
     torch.cuda.synchronize()
     assert K.dynconv_branches.launches == before + 1
     assert got.shape == (N, len(ks) * OA, *shape)
+    assert torch.equal(got, K.dynconv_branches_plain(x, ws))
+
+
+@pytest.mark.parametrize("shape", [(5, 3), (7, 1), (11, 40), (6, 44), (9, 37)])
+@pytest.mark.parametrize("I_,OA,ks", [(8, 11, (3, 5, 7)), (8, 11, (1,)), (16, 19, (1, 3, 5)), (32, 35, (1, 5)),
+                                      (32, 35, (3,))])
+def test_dynconv_branches_register_tile_tails(gen, I_, OA, ks, shape):
+    """N = 1 on widths where the 4-pixel register tile's tails run: W < 4
+    and W = 1, W % 8 == 0 but no multiple of the 32-column block (the
+    16-byte staging), W % 4 == 0 but not % 8 (scalar staging, vector
+    stores) and an odd W; OA = 19 and 35 in their channel groups (10 + 9,
+    12 + 12 + 11), k = 1 alone, and blocks of 32, 16 and 8 rows. Bit for
+    bit."""
+    x, ws = dynconv_rig(gen, 1, I_, OA, ks, shape)
+    got = K.dynconv_branches(x, ws)
+    torch.cuda.synchronize()
     assert torch.equal(got, K.dynconv_branches_plain(x, ws))
 
 

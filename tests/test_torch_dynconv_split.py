@@ -29,7 +29,7 @@ from cds_mvsnet_tpu_torch.config import ModelConfig
 from cds_mvsnet_tpu_torch.models import build_model, to_tensors
 from cds_mvsnet_tpu_torch.models.stage_net import PLAIN_OPS
 from cds_mvsnet_tpu_torch.ops import kernels as K
-from cds_mvsnet_tpu_torch.ops.kernels.dynconv import SMEM_LIMIT, shared_bytes
+from cds_mvsnet_tpu_torch.ops.kernels.dynconv import SMEM_LIMIT, shared_bytes, tile_rows
 from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
 
 torch.set_num_threads(2)
@@ -117,8 +117,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     assert torch.equal(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
 
 
-@pytest.mark.parametrize("I_,OA,ks", [(8, 11, (3, 5, 7)), (8, 11, (1, 3, 5, 7)), (16, 19, (1, 3)), (16, 19, (5, 1)),
-                                      (16, 19, (1, 3, 5)), (32, 35, (1, 3)), (32, 35, (1, 5)), (32, 35, (3,))])
+@pytest.mark.parametrize("I_,OA,ks", [(8, 11, (3, 5, 7)), (8, 11, (1, 3, 5, 7)), (8, 11, (1,)), (16, 19, (1, 3)),
+                                      (16, 19, (5, 1)), (16, 19, (1, 3, 5)), (32, 35, (1, 3)), (32, 35, (1, 5)),
+                                      (32, 35, (3,))])
 def test_card_shapes_fit_shared_memory(I_, OA, ks):
     """The layers the card tests run fit one block's shared memory."""
     assert shared_bytes(I_, ks, OA) <= SMEM_LIMIT
+
+
+def test_conv01_tile_shares_an_sm():
+    """conv01 (I = 8, k = 3, 5, 7, OA = 11) runs blocks of 32 rows, two to
+    an SM: the 38 x 39 fp32 tile of 8 channels and 83 taps x 12 weight slots
+    of 8 channels."""
+    assert tile_rows(8, (3, 5, 7), 11) == 32
+    assert shared_bytes(8, (3, 5, 7), 11) == 4 * (8 * 38 * 39 + 8 * 83 * 12)
+    assert 2 * (shared_bytes(8, (3, 5, 7), 11) + 1024) <= SMEM_LIMIT
