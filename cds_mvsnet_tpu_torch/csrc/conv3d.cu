@@ -3,8 +3,10 @@
 // ops/kernels/conv3d.py.
 //
 // K2 on a bf16 volume runs conv3d_mma_kernel: the tensor-core implicit GEMM
-// of conv3d_mma.cuh, which K6's conv0 shares. The fp32 volume (K2's fp32
-// route) and the stride-2 K7 run the direct body conv3d_bn_relu_kernel.
+// of conv3d_mma.cuh, which K6's conv0 shares. K2 on an fp32 volume (the fp32
+// route) runs conv3d_tf32_kernel, the same GEMM in 3xTF32 on
+// mma.sync.m16n8k8. The stride-2 K7 runs the direct body
+// conv3d_bn_relu_kernel.
 #include "conv3d_mma.cuh"
 
 constexpr int TX = 32, TY = 8;
@@ -203,6 +205,276 @@ static int launch_mma(const void* vol, const void* wt, const void* bias, void* o
   return (int)cudaGetLastError();
 }
 
+// K2 in fp32: the implicit GEMM (M = output voxels, N = O, K = 27·C) on
+// mma.sync.m16n8k8 with TF32 inputs, as three products into one fp32 sum:
+// each fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna's rounding: 10 mantissa bits, ties away from zero), and a K-step
+// runs hi·hi, hi·lo and lo·hi. The dropped lo·lo and the roundings of lo
+// leave about 2^-21 of each |term|, far inside the fp32 route's tolerance of
+// 1e-5 of the sum of |terms| (tests/test_torch_conv3d_tf32.py models it);
+// one TF32 product alone, or hi·hi + hi·lo, misses it.
+//
+// The tiling is K2-bf16's (k2 above): a resident block of 8 warps walks
+// 4x4x32 output tiles; the halo of 8 channels (a chunk, zeros past C) is
+// loaded into registers before the MMAs of the last chunk and stored after
+// them, channel-innermost, 32 bytes a voxel, its two 16-byte halves swapped
+// where bit 2 of the halo x is set, so that the eight rows of an ldmatrix
+// (consecutive x) cover the 32 banks once. ldmatrix.x4 reads a 16-voxel x
+// 8-channel fp32 A fragment as four 8x8 b16 matrices, which is exactly the
+// m16n8k8 TF32 layout. The weights are split hi/lo as they are staged, once
+// a block. A warp owns one (y, 16-x) column of 4 M-tiles stacked along z:
+// the input rows of plane hz feed the M-tiles hz - kd of the depth taps kd,
+// so each A fragment is loaded and split once for up to three taps.
+namespace k2f {
+using k2::MZ; using k2::MY; using k2::MX; using k2::kThreads;
+constexpr int HZ = MZ + 2, HY = MY + 2, HX = MX + 2;  // x from x0 - 1
+constexpr int HV = HZ * HY * HX;                      // 1224 voxels, 39 KB a chunk
+constexpr int NTASK = (HV + kThreads - 1) / kThreads;  // 5 halo voxels a thread
+constexpr int kMaxSmem = 227 * 1024;
+
+// cvt.rna.tf32.f32 on a finite x, as two integer operations: half of the 13
+// dropped bits' weight added to the magnitude, then the bits cleared (ties
+// away from zero). The instruction itself also tests for NaN and ran 12 %
+// slower here (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));  // x - hi is exact in fp32
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Entry ((chunk * 27 + tap) * NT + nt) * 32 + lane: for n = nt*8 + lane/4 and
+// c = chunk*8 + lane%4, the B fragment {b0: channel c, b1: channel c + 4} of
+// the tap, once as hi and once as lo; zeros past C.
+template <int NT>
+__device__ void stage_weights(uint4* wfrag, const float* __restrict__ w, int C, int nchunks, int tid) {
+  const int n_entries = nchunks * conv_mma::TAPS * NT * 32;
+  for (int i = tid; i < n_entries; i += kThreads) {
+    const int lane = i % 32, rest = i / 32;
+    const int nt = rest % NT, step = rest / NT;
+    const int tap = step % conv_mma::TAPS, chunk = step / conv_mma::TAPS;
+    const int n = nt * 8 + lane / 4, c = chunk * conv_mma::CH + lane % 4;
+    const float v0 = c < C ? __ldg(w + ((size_t)n * C + c) * conv_mma::TAPS + tap) : 0.f;
+    const float v1 = c + 4 < C ? __ldg(w + ((size_t)n * C + c + 4) * conv_mma::TAPS + tap) : 0.f;
+    uint4 e;
+    split(v0, e.x, e.z);
+    split(v1, e.y, e.w);
+    wfrag[i] = e;
+  }
+}
+
+// Channels c0 .. c0+7 (zeros past C) of halo voxels v = i*kThreads + tid of
+// the box at (z0, y0, x0), zeros outside the volume.
+__device__ __forceinline__ void load_halo(float (&q)[NTASK][8], const float* __restrict__ vol, size_t plane, int c0,
+                                          int C, int z0, int y0, int x0, int D, int h, int w, int tid) {
+#pragma unroll
+  for (int i = 0; i < NTASK; ++i) {
+    const int v = i * kThreads + tid;
+    const int hx = v % HX, hy = (v / HX) % HY, hz = v / (HX * HY);
+    const int z = z0 + hz, y = y0 + hy, x = x0 + hx;
+    const bool in = v < HV && z >= 0 && z < D && y >= 0 && y < h && x >= 0 && x < w;
+    const float* p = vol + (in ? (size_t)c0 * plane + ((size_t)z * h + y) * w + x : 0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) q[i][c] = in && c0 + c < C ? __ldg(p + c * plane) : 0.f;
+  }
+}
+
+// Voxel v's channels 0-3 go to half s = bit 2 of its halo x, 4-7 to 1 - s.
+__device__ __forceinline__ void store_halo(float4* halo, const float (&q)[NTASK][8], int tid) {
+#pragma unroll
+  for (int i = 0; i < NTASK; ++i) {
+    const int v = i * kThreads + tid;
+    if (v < HV) {
+      const int s = ((v % HX) >> 2) & 1;
+      halo[2 * v + s] = make_float4(q[i][0], q[i][1], q[i][2], q[i][3]);
+      halo[2 * v + (s ^ 1)] = make_float4(q[i][4], q[i][5], q[i][6], q[i][7]);
+    }
+  }
+}
+
+// One chunk: for each (ky, kx), the B fragments of the three depth taps,
+// then per input plane hz one A fragment, split, into the M-tiles hz - kd.
+// lane_off[kx]: byte offset in the halo of this lane's ldmatrix row at plane
+// 0, row ky = 0 and tap kx.
+template <int NT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[MZ][NT][4], uint32_t halo, const uint32_t (&lane_off)[3],
+                                          const uint4* wfrag, int lane) {
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      uint4 b[3][NT];
+#pragma unroll
+      for (int kd = 0; kd < 3; ++kd)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) b[kd][nt] = wfrag[((kd * 9 + ky * 3 + kx) * NT + nt) * 32 + lane];
+#pragma unroll
+      for (int hz = 0; hz < HZ; ++hz) {
+        uint32_t a[4], hi[4], lo[4];
+        conv_mma::ldmatrix_x4(a, halo + lane_off[kx] + (hz * HY + ky) * HX * 32);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split(__uint_as_float(a[j]), hi[j], lo[j]);
+#pragma unroll
+        for (int kd = 0; kd < 3; ++kd) {
+          const int m = hz - kd;
+          if (m < 0 || m >= MZ) continue;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            mma_tf32(acc[m][nt], hi, b[kd][nt].x, b[kd][nt].y);
+            mma_tf32(acc[m][nt], hi, b[kd][nt].z, b[kd][nt].w);
+            mma_tf32(acc[m][nt], lo, b[kd][nt].x, b[kd][nt].y);
+          }
+        }
+      }
+    }
+  }
+}
+}  // namespace k2f
+
+// NT: output channels / 8. Two resident blocks an SM at O = 8.
+template <int NT>
+__global__ void __launch_bounds__(k2::kThreads, NT == 1 ? 2 : 1) conv3d_tf32_kernel(
+    const float* __restrict__ vol,  // (C, D, h, w)
+    const float* __restrict__ wt,   // (8*NT, C, 3, 3, 3), eval BN folded in
+    const float* __restrict__ bias, // (8*NT,)
+    float* __restrict__ out,        // (8*NT, D, h, w)
+    int C, int D, int h, int w, int tiles_x, int tiles_y, int n_tiles) {
+  using namespace k2f;
+  extern __shared__ uint4 smem[];
+  const int nchunks = (C + conv_mma::CH - 1) / conv_mma::CH;
+  uint4* wfrag = smem;
+  float4* halo = reinterpret_cast<float4*>(smem + nchunks * conv_mma::TAPS * NT * 32);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  stage_weights<NT>(wfrag, wt, C, nchunks, tid);
+
+  // warp -> output row y = warp / 2, x from (warp % 2) * 16, M-tiles z = 0..3;
+  // lane -> ldmatrix matrix lane / 8: rows (lane % 8) + 8 * (matrix & 1),
+  // channels 4 * (matrix >> 1) .. + 3
+  const int wy = warp / 2, wx = (warp % 2) * 16;
+  const int mrow = (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
+  uint32_t lane_off[3];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    const int hx = wx + mrow + kx;
+    lane_off[kx] = (wy * HX + hx) * 32 + 16 * (half ^ ((hx >> 2) & 1));
+  }
+  float bv[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[nt][e] = __ldg(bias + nt * 8 + 2 * (lane % 4) + e);
+  const size_t plane = (size_t)D * h * w, hw = (size_t)h * w;
+  const uint32_t halo_s = conv_mma::smem_addr(halo);
+
+  int tile = blockIdx.x, z0, y0, x0;
+  float q[NTASK][8];
+  k2::tile_origin(tile, tiles_x, tiles_y, z0, y0, x0);
+  load_halo(q, vol, plane, 0, C, z0 - 1, y0 - 1, x0 - 1, D, h, w, tid);
+  float acc[MZ][NT][4];
+  for (;;) {
+    k2::tile_origin(tile, tiles_x, tiles_y, z0, y0, x0);
+    conv_mma::zero(acc);
+    for (int chunk = 0; chunk < nchunks; ++chunk) {
+      __syncthreads();  // every warp is done with the last chunk (and the weights are staged)
+      store_halo(halo, q, tid);
+      __syncthreads();
+      int next = tile, next_chunk = chunk + 1;
+      if (next_chunk == nchunks) next += gridDim.x, next_chunk = 0;
+      if (next < n_tiles) {
+        int nz, ny, nx;
+        k2::tile_origin(next, tiles_x, tiles_y, nz, ny, nx);
+        load_halo(q, vol, plane, next_chunk * conv_mma::CH, C, nz - 1, ny - 1, nx - 1, D, h, w, tid);
+      }
+      mma_chunk<NT>(acc, halo_s, lane_off, wfrag + chunk * conv_mma::TAPS * NT * 32, lane);
+    }
+    const int y = y0 + wy;
+#pragma unroll
+    for (int m = 0; m < MZ; ++m) {
+      const int z = z0 + m;
+      if (z >= D || y >= h) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int x = x0 + wx + lane / 4 + 8 * hf;
+        if (x >= w) continue;
+        const size_t at = (size_t)z * hw + (size_t)y * w + x;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            out[(size_t)(nt * 8 + 2 * (lane % 4) + e) * plane + at] = fmaxf(acc[m][nt][2 * hf + e] + bv[nt][e], 0.f);
+      }
+    }
+    tile += gridDim.x;
+    if (tile >= n_tiles) break;
+  }
+}
+
+template <int NT>
+static size_t tf32_smem(int C) {
+  const int nchunks = (C + conv_mma::CH - 1) / conv_mma::CH;
+  return (size_t)nchunks * conv_mma::TAPS * NT * 32 * sizeof(uint4) + (size_t)k2f::HV * 32;
+}
+
+// The card's resident blocks of conv3d_tf32_kernel<NT> at C channels (0 if
+// the shared memory does not fit or a query fails); per_sm: an SM's.
+template <int NT>
+static int tf32_resident(int C, int& per_sm) {
+  const size_t smem = tf32_smem<NT>(C);
+  if (smem > (size_t)k2f::kMaxSmem) return 0;
+  static const cudaError_t opt_in =  // once per instantiation, not per launch
+      cudaFuncSetAttribute(conv3d_tf32_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, k2f::kMaxSmem);
+  if (opt_in != cudaSuccess) return 0;
+  static int occupancy[64 + 1] = {};
+  const int chunks8 = (C + conv_mma::CH - 1) / conv_mma::CH * conv_mma::CH;
+  if (chunks8 > 64 * conv_mma::CH) return 0;
+  const int limit = conv_mma::resident_grid(conv3d_tf32_kernel<NT>, k2::kThreads, smem, chunks8, occupancy);
+  per_sm = occupancy[chunks8 / conv_mma::CH];
+  return limit;
+}
+
+template <int NT>
+static int launch_tf32(const void* vol, const void* wt, const void* bias, void* out, int C, int D, int h, int w,
+                       void* stream) {
+  using namespace k2;
+  int per_sm = 0;
+  const int limit = tf32_resident<NT>(C, per_sm);
+  if (limit == 0) return (int)cudaErrorInvalidConfiguration;
+  const int tiles_x = (w + MX - 1) / MX, tiles_y = (h + MY - 1) / MY, tiles_z = (D + MZ - 1) / MZ;
+  const int n_tiles = tiles_x * tiles_y * tiles_z;
+  if (n_tiles == 0) return 0;
+  conv3d_tf32_kernel<NT><<<n_tiles < limit ? n_tiles : limit, kThreads, tf32_smem<NT>(C),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vol), static_cast<const float*>(wt), static_cast<const float*>(bias),
+      static_cast<float*>(out), C, D, h, w, tiles_x, tiles_y, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// K2-fp32's resources at O output and C input channels: out = {registers a
+// thread, resident blocks an SM, dynamic shared bytes a block}.
+CDS_EXPORT int conv3d_tf32_plan(int O, int C, int* out) {
+  if (O != 8 && O != 16) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaFuncAttributes attr;
+  const int limit = O == 8 ? tf32_resident<1>(C, per_sm) : tf32_resident<2>(C, per_sm);
+  if (limit == 0 ||
+      cudaFuncGetAttributes(&attr, O == 8 ? conv3d_tf32_kernel<1> : conv3d_tf32_kernel<2>) != cudaSuccess)
+    return (int)cudaErrorInvalidConfiguration;
+  out[0] = attr.numRegs;
+  out[1] = per_sm;
+  out[2] = (int)(O == 8 ? tf32_smem<1>(C) : tf32_smem<2>(C));
+  return 0;
+}
+
 template <int S>
 static int dispatch(const void* vol, const void* wt, const void* bias, void* out, int fp32, int O, int C, int D,
                     int h, int w, void* stream) {
@@ -215,8 +487,12 @@ static int dispatch(const void* vol, const void* wt, const void* bias, void* out
       return O == 8 ? launch<bf16, 8, S>(vol, wt, bias, out, C, D, h, w, stream)
                     : launch<bf16, 16, S>(vol, wt, bias, out, C, D, h, w, stream);
   }
-  return O == 8 ? launch<float, 8, S>(vol, wt, bias, out, C, D, h, w, stream)
-                : launch<float, 16, S>(vol, wt, bias, out, C, D, h, w, stream);
+  if constexpr (S == 1)  // K2 in fp32: 3xTF32 on the tensor cores
+    return O == 8 ? launch_tf32<1>(vol, wt, bias, out, C, D, h, w, stream)
+                  : launch_tf32<2>(vol, wt, bias, out, C, D, h, w, stream);
+  else
+    return O == 8 ? launch<float, 8, S>(vol, wt, bias, out, C, D, h, w, stream)
+                  : launch<float, 16, S>(vol, wt, bias, out, C, D, h, w, stream);
 }
 
 // K2, stride 1. fp32 = 1 for an fp32 volume and output, 0 for bf16; O in {8, 16}.

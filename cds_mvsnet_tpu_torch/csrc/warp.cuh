@@ -1,4 +1,4 @@
-// The plane-sweep projection and bilinear gather shared by K1/K5's forward
+// The plane-sweep projection and bilinear gather shared by K1 and K5's forward
 // (warp.cu), K5's backward (warp_vjp.cu) and K9 (gather.cu). Wrappers, plain versions and
 // design notes: ops/kernels/warp.py, ops/kernels/warp_vjp.py.
 #pragma once
@@ -69,8 +69,8 @@ __device__ __forceinline__ Footprint project(const float* r, const float* L, flo
 // (forward and the backward's recompute), whose train step is held against
 // the plain path's, and at random weights that step's gradients move by 0.13
 // relative L2 when 2e-5 of the warped values sit one bf16 ulp off; and K9
-// (gather.cu). Otherwise the multiply-adds fuse: K1, which the op-by-op
-// gather costs 3-4 % of its time.
+// (gather.cu). Otherwise the multiply-adds fuse, as K1's gather_lane below
+// does: the op-by-op gather cost K1 3-4 % of its time.
 template <int C, bool kExact, typename T>
 __device__ __forceinline__ void gather(const T* __restrict__ src, const Footprint& f, int W,
                                        float* acc) {
@@ -91,6 +91,35 @@ __device__ __forceinline__ void gather(const T* __restrict__ src, const Footprin
         const int c = q * 8 + i;
         acc[c] = kExact ? __fadd_rn(acc[c], __fmul_rn(v[i], f.wts[k])) : fmaf(v[i], f.wts[k], acc[c]);
       }
+    }
+  }
+}
+
+// K1's lane-group form of gather<C, false>: the lane that holds channels
+// c0 .. c0 + 8V - 1 of a bf16 pixel loads them from each corner in V
+// 16-byte loads (addresses clamped into the image, so the loads do not wait
+// for the bounds test) and sums them with the same fused multiply-adds in
+// corner order, skipping an out-of-bounds corner as gather<> does: each
+// channel's value equals gather<C, false>'s bit for bit.
+template <int V>
+__device__ __forceinline__ void gather_lane(const bf16* __restrict__ src, const Footprint& f, int H, int W, int C,
+                                            int c0, float (&acc)[8 * V]) {
+#pragma unroll
+  for (int i = 0; i < 8 * V; ++i) acc[i] = 0.f;
+  const int xa = min(max(f.x0, 0), W - 1) * C, xb = min(max(f.x0 + 1, 0), W - 1) * C;
+  const bf16* rows[2] = {src + (size_t)min(max(f.y0, 0), H - 1) * W * C + c0,
+                         src + (size_t)min(max(f.y0 + 1, 0), H - 1) * W * C + c0};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint4* p = reinterpret_cast<const uint4*>(rows[k >> 1] + (k & 1 ? xb : xa));
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const uint4 q = __ldg(p + v);
+      if (!f.ok[k]) continue;
+      float x[8];
+      unpack8(q, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[8 * v + i] = fmaf(x[i], f.wts[k], acc[8 * v + i]);
     }
   }
 }

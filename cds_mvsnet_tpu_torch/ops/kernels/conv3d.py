@@ -39,12 +39,28 @@ The body (``csrc/conv3d_mma.cuh``) is shared with K6's conv0. The TPU
 kernel's three pre-shifted volume copies (the x taps at lane-aligned DMA
 windows) are Mosaic mechanics; here ldmatrix takes any voxel row.
 
-K2 in fp32 and K7 keep the direct body (``conv3d_bn_relu_kernel``): one
-thread per output voxel computes all O outputs with fp32 FMAs, the folded
-weights in shared memory in ``[c][tap][o]`` order, the input reuse left to
-L1. In fp32 it beats cuDNN's fp32 conv, and K7 beats cuDNN's stride-2
-conv (``PERF.md``). The TPU kernel rounds an fp32 volume to bf16 for its
-matrix unit (``conv3d.py:186-187,198``); the port's fp32 route stays fp32.
+K2 in fp32 (``conv3d_tf32_kernel``) is the same implicit GEMM in 3xTF32 on
+``mma.sync.m16n8k8``: every fp32 operand x, activation and weight, is split
+into hi = tf32(x) and lo = tf32(x - hi) (``cvt.rna``), and each K-step runs
+hi·hi, hi·lo and lo·hi into one fp32 sum, which keeps about 22 bits of each
+term: within the fp32 route's tolerance, where one TF32 product or two are
+not (``tests/test_torch_conv3d_tf32.py``). The tile walk, the 4x4x32 output
+tile and the register-staged halo are K2-bf16's; the halo is fp32, 32 bytes
+a voxel, its halves swapped where bit 2 of the halo x is set so that
+``ldmatrix`` (which reads a 16 x 8 fp32 A fragment as four 8x8 b16
+matrices) meets no bank twice. The weights are split as they are staged;
+an activation fragment is split after ``ldmatrix`` and feeds the three
+depth taps of a warp's four z-stacked M-tiles, so it is loaded and split
+once per three products. Any C: a ragged chunk of 8 channels is padded
+with zeros. Bound: the three TF32 products at the dense TF32 rate, about
+1.8x the bytes at the DTU protocol's stage 1. The TPU kernel rounds an fp32
+volume to bf16 for its matrix unit (``conv3d.py:186-187,198``); the port's
+fp32 route keeps fp32 accuracy.
+
+K7 keeps the direct body (``conv3d_bn_relu_kernel``): one thread per output
+voxel computes all O outputs with fp32 FMAs, the folded weights in shared
+memory in ``[c][tap][o]`` order, the input reuse left to L1. K7 beats
+cuDNN's stride-2 conv (``PERF.md``).
 """
 
 from __future__ import annotations

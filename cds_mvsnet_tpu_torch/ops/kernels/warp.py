@@ -11,30 +11,41 @@ features bilinearly with zeros padding, writes ``in_prod = ref ⊙ warped``
 ``(C, D, h, w)`` in bf16, and folds ``sim = Σ_C ref·warped`` into an online
 ``(m, s, u)`` so that the entropy of ``softmax_D(sim)`` is
 ``m + log s − u/s`` without a ``(D, h, w)`` buffer. K5's forward
-(``ops/kernels/warp_vjp.py``) is the same kernel body with ``sim`` stored
-instead (``warp_kernel<C, kSim>``); the projection and the gather live in
+(``ops/kernels/warp_vjp.py``) keeps the one-thread-a-pixel body with ``sim``
+stored instead (``warp_kernel<C>``); the projection and the gathers live in
 ``csrc/warp.cuh``.
 
 Bound on the H100: memory. The ``in_prod`` write dominates: about
 199 / 304 / 195 MB per launch at stages 1/2/3 of the 1152x864 main path
-(59 / 91 / 58 µs at 3.35 TB/s). Design: one thread per reference pixel loops
-over D, so the ref vector and the online state stay in registers; the source
-is channels-last, so each bilinear corner is one contiguous C-vector of 16-byte
-loads that the L1/L2 caches serve (the source map is 4-16 MB); the
-``in_prod`` stores of a warp are consecutive along w. The TPU's band cache,
+(59 / 91 / 58 µs at 3.35 TB/s). Design (``warp_entropy_kernel<C>``, see
+:func:`launch_plan`): a block of 256 threads owns P consecutive pixels of
+the flattened ``(h, w)`` grid, so a ragged w wastes no lane; a pixel's C
+channels go to C/16 lanes of 16 (one lane of 8 at C = 8; P = 128 / 256 /
+256 at C = 32 / 16 / 8). Each lane projects its pixel, gathers its channels
+of each bilinear corner in 16-byte loads of the channels-last source
+(served by L1/L2: the source map is 4-16 MB) and keeps its ref values and
+the online state in registers; ``sim`` is the xor-shuffle sum over a
+pixel's lanes. ``in_prod`` leaves through shared memory: each warp writes a
+plane's ``(C, 32/lanes)`` bf16 sub-tile to one of two buffers and stores it
+as 16-byte evict-first vectors, rows of 16 or 32 pixels (one or two whole
+32-byte sectors); a warp waits only for itself. The TPU's band cache,
 selection matmuls and tiling are Mosaic mechanics and are not carried over.
 Numerics: bilinear weights are fp32 (the TPU kernel rounds the x-weights to
 bf16), the warped value is rounded to bf16 before the product and the
 similarity, as on the TPU. The projection and the weights round each
 operation as the plain version does (no FMA contraction), so both pick the
-same corners and weights; the gather fuses its multiply-adds, so a warped
+same corners and weights; the gather fuses its multiply-adds, in corner
+order from 0, as the one-thread-a-pixel K1 of earlier commits did, whose
+``in_prod`` this one equals bit for bit (``tools/time_warp.py``); a warped
 value, and with it ``in_prod``, may sit one bf16 ulp from the plain
-version's (about 2e-5 of the values on the card; K5's forward gathers op
-by op instead, see ``warp_vjp.py``); ``sim`` sums its C products in another
+version's (about 2e-5 of the values on the card; K5's forward gathers op by
+op instead, see ``warp_vjp.py``); ``sim`` sums its C products in another
 order.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,9 +53,10 @@ from ..grid_sample import grid_sample_pixel
 from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 
-__all__ = ["warp_entropy", "warp_entropy_plain", "warp_sim_plain"]
+__all__ = ["launch_plan", "warp_entropy", "warp_entropy_card_plan", "warp_entropy_plain", "warp_sim_plain"]
 
 CHANNELS = (8, 16, 32)
+K1_THREADS = 256  # warp_entropy_kernel's block (k1::kThreads in csrc/warp.cu)
 # elements of one chunk of planes in the plain versions (K1, K5), to bound their temporaries
 PLAIN_CHUNK_ELEMS = 1 << 25
 
@@ -78,7 +90,7 @@ def check_inputs(name: str, src, ref, depth, rt) -> None:
     C = src.shape[2]
     require(ref.ndim == 3 and ref.shape[0] == C, f"{name}: ref {tuple(ref.shape)} for C={C}")
     _, h, w = ref.shape
-    require(depth.ndim in (1, 3), f"{name}: depth {tuple(depth.shape)}")
+    require(depth.ndim in (1, 3) and depth.shape[0] >= 1, f"{name}: depth {tuple(depth.shape)}")
     require(depth.ndim == 1 or depth.shape[1:] == (h, w), f"{name}: depth {tuple(depth.shape)}")
     require(tuple(rt.shape) == (12,), f"{name}: rt {tuple(rt.shape)}")
     require(src.dtype == ref.dtype == torch.bfloat16, f"{name}: src and ref must be bf16")
@@ -109,6 +121,32 @@ def warp_entropy_plain(src, ref, depth, rt):
     in_prod, sim = warp_sim_plain(src, ref, depth, rt)
     entropy = -(torch.softmax(sim, 0) * torch.log_softmax(sim, 0)).sum(0)
     return in_prod, entropy
+
+
+def launch_plan(C: int, h: int, w: int) -> dict:
+    """K1's launch plan at C channels and an ``h x w`` reference, as
+    ``csrc/warp.cu`` makes it: ``lanes`` a pixel, the ``pixels`` of a block
+    (consecutive in the flattened reference) and of each of its warps
+    (``warp_pixels``), the ``shared_bytes`` of a block (two buffers of one
+    plane's ``(C, warp_pixels)`` bf16 sub-tile a warp), the ``blocks`` over
+    ``h*w`` and the last one's ``tail`` pixels, and whether ``in_prod``'s rows
+    allow 16-byte stores (``vector_stores``)."""
+    require(C in CHANNELS, f"launch_plan: C={C} not in {CHANNELS}")
+    lanes = C // 16 if C >= 16 else 1
+    pixels = K1_THREADS // lanes
+    blocks = -(-h * w // pixels)
+    return {"lanes": lanes, "pixels": pixels, "warp_pixels": 32 // lanes, "shared_bytes": 2 * C * pixels * 2,
+            "blocks": blocks, "tail": h * w - (blocks - 1) * pixels, "vector_stores": h * w % 8 == 0}
+
+
+def warp_entropy_card_plan(C: int, h: int, w: int) -> dict:
+    """The launcher's own plan on the card (``warp_entropy_plan``): the
+    keys of :func:`launch_plan` that it sets, the ``registers`` a thread and
+    the resident ``blocks_per_sm``."""
+    out = (ctypes.c_int * 6)()
+    lib, fn = entry("warp", "warp_entropy_plan", [I, I, I, P])
+    _build.check(lib, fn(C, h, w, ctypes.cast(out, P)), "warp_entropy_plan")
+    return dict(zip(("lanes", "pixels", "shared_bytes", "blocks", "registers", "blocks_per_sm"), list(out)))
 
 
 def warp_entropy(src: torch.Tensor, ref: torch.Tensor, depth: torch.Tensor, rt: torch.Tensor):

@@ -5,7 +5,7 @@ Replaces ``cds_mvsnet_tpu/ops/pallas/warp_vjp.py::fused_warp_train``
 (``warp_pallas_v8(..., emit_entropy=False)`` :53-56, ``pl.pallas_call`` at
 ``warp.py:1419``); its backward (:92-104) is the VJP of the bilinear gather,
 which the JAX package leaves to XLA. Kernel sources: ``csrc/warp.cu``
-(forward, K1's kernel body with the sim epilogue, ``warp_kernel<C, true>``)
+(forward: one thread a pixel, the sim epilogue, ``warp_kernel<C>``)
 and ``csrc/warp_vjp.cu`` (backward); both include ``csrc/warp.cuh``.
 
 - :func:`warp_sim` ``(src (H,W,C), ref (C,h,w), depth, rt) -> (in_prod

@@ -1,5 +1,5 @@
-"""Time K2 in bf16 and K6 as built from several kernel source directories,
-in one process on one card, beside cuDNN.
+"""Time K2 in bf16 and in fp32 and K6 as built from several kernel source
+directories, in one process on one card, beside cuDNN.
 
     python -m cds_mvsnet_tpu_torch.tools.time_conv3d DIR [DIR ...] [--rounds N]
 
@@ -10,20 +10,24 @@ and of a parent commit unpacked beside it. Both are built with the flags of
 drawn as in ``chip_smoke.py``'s kernels phase: K2 at O = 8 at the three
 stage shapes of the serve point (1152x864, ndepths 48/32/8) and at the
 stream point's stage 1 (D = 128, 120x160), K2 at O = 16 at the conv2 shapes
-of the ``3`` fronts, and K6 at the serve stage shapes, with K2 then K7 of
-the same source beside it. Rounds alternate the order of the sources (A B,
+of the ``3`` fronts, K6 at the serve stage shapes, with K2 then K7 of
+the same source beside it, and K2 in fp32 (the fp32 route's conv0, O = 8)
+at the stage shapes of the DTU protocol point (576x768 under refinement),
+the serve point and the stream point (480x640, ndepths 128/32/8). Rounds alternate the order of the sources (A B,
 B A, ...); a time is the median over rounds of the mean of ``--reps``
 launches between CUDA events (``tools/_timing.py``). cuDNN's call
 (``F.conv3d`` + ReLU on bf16 weights; for K6 its two calls) is timed in
-each round too. One JSON line per
+each round too; in fp32 on fp32 weights with TF32 off. One JSON line per
 case and source, with the largest difference to the plain version (K2:
-one bf16 ulp allowed; K6: out0 equal to the same source's K2 and out1 to its
-K7, bit for bit); the card's ``nvidia-smi`` name and power limit come first.
+one bf16 ulp allowed, in fp32 1e-5 of the sum of |terms| + 1e-7; K6: out0
+equal to the same source's K2 and out1 to its K7, bit for bit); the card's
+``nvidia-smi`` name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import tempfile
@@ -38,6 +42,8 @@ from ._timing import I, P, build, card, medians, stream_ptr, typed
 
 H, W = 864, 1152
 SERVE = [(32, 48, H // 4, W // 4), (16, 32, H // 2, W // 2), (8, 8, H, W)]
+PROTOCOL = [(32, 48, 144, 192), (16, 32, 288, 384), (8, 8, 576, 768)]
+STREAM = [(32, 128, 120, 160), (16, 32, 240, 320), (8, 8, 480, 640)]
 
 
 def conv(lib, entry: str, vol, w, b, stride: int):
@@ -47,8 +53,8 @@ def conv(lib, entry: str, vol, w, b, stride: int):
     C, D, h, wd = vol.shape
     out = torch.empty((w.shape[0], (D - 1) // stride + 1, (h - 1) // stride + 1, (wd - 1) // stride + 1),
                       dtype=vol.dtype, device=vol.device)
-    err = fn(*(P(t.data_ptr()) for t in (vol, w, b, out)), 0, w.shape[0], C, D, h, wd,
-             stream_ptr())
+    err = fn(*(P(t.data_ptr()) for t in (vol, w, b, out)), int(vol.dtype == torch.float32), w.shape[0], C, D, h,
+             wd, stream_ptr())
     if err:
         raise RuntimeError(f"{entry}: CUDA error {err}")
     return out
@@ -71,6 +77,8 @@ def main(argv=None) -> int:
     ap.add_argument("dirs", nargs="+", type=Path)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kernels", nargs="+", default=["k2", "k2_o16", "k6", "k2_fp32"],
+                    help="cases to time: k2, k2_o16, k6, k2_fp32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_conv3d: needs the card", file=sys.stderr)
@@ -91,12 +99,16 @@ def main(argv=None) -> int:
     cases.append(("k2", "stream1", (32, 128, 120, 160), 8))
     cases += [("k2_o16", f"serve{s}", (16, D // 2, h // 2, w // 2), 16) for s, (_, D, h, w) in enumerate(SERVE, 1)]
     cases += [("k6", f"serve{s}", shape, 8) for s, shape in enumerate(SERVE, start=1)]
+    cases += [("k2_fp32", f"{point}{s}", shape, 8) for point, shapes in
+              (("protocol", PROTOCOL), ("serve", SERVE), ("stream", STREAM)) for s, shape in enumerate(shapes, 1)]
+    cases = [case for case in cases if case[0] in args.kernels]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(args.dirs, ("conv3d", "conv3d_fused"), Path(tmp))
         for kernel, point, shape, O in cases:
-            vol = uniform(shape)
+            fp32 = kernel == "k2_fp32"
+            vol = uniform(shape, dtype=torch.float32 if fp32 else torch.bfloat16)
             wb = weights(O, shape[0])
-            lw = [t.bfloat16() for t in wb]
+            lw = list(wb) if fp32 else [t.bfloat16() for t in wb]
             w1b1 = weights(16, 8)
             lw1 = [t.bfloat16() for t in w1b1]
             runs, checks = {}, {}
@@ -113,8 +125,15 @@ def main(argv=None) -> int:
                     y = conv(lib, "conv3d_bn_relu_launch", vol, *wb, 1)
                     want = K.conv3d_bn_relu_plain(vol, *wb)
                     d = (y.float() - want.float()).abs()
-                    checks[i] = {"max_abs_err": float(d.max()),
-                                 "one_ulp": bool((d <= 2 ** -7 * want.float().abs() + 1e-3).all())}
+                    if fp32:
+                        terms = F.conv3d(vol.abs()[None], wb[0].abs(), padding=1)[0] + wb[1].abs()[:, None, None, None]
+                        checks[i] = {"max_abs_err": float(d.max()), "within_fp32_tol": bool(
+                            (d <= 1e-5 * terms + 1e-7).all())}
+                        del terms
+                    else:
+                        checks[i] = {"max_abs_err": float(d.max()),
+                                     "one_ulp": bool((d <= 2 ** -7 * want.float().abs() + 1e-3).all())}
+                    del y, want, d
                     runs[i] = lambda lib=lib: conv(lib, "conv3d_bn_relu_launch", vol, *wb, 1)
             if kernel == "k6":
                 runs["cudnn"] = lambda: F.conv3d(F.conv3d(vol[None], *lw, padding=1).relu_(), *lw1, stride=2,
@@ -125,6 +144,10 @@ def main(argv=None) -> int:
             for i, d in enumerate(args.dirs):
                 row = {"kernel": kernel, "point": point, "shape": list(shape), "O": O, "dir": str(d),
                        "ms": med[i], "cudnn_ms": med["cudnn"], **checks[i]}
+                if fp32 and hasattr(libs[i]["conv3d"], "conv3d_tf32_plan"):  # registers, blocks an SM, smem
+                    out = (ctypes.c_int * 3)()
+                    typed(libs[i]["conv3d"], "conv3d_tf32_plan", [I, I, P])(O, shape[0], ctypes.cast(out, P))
+                    row.update(registers=out[0], blocks_per_sm=out[1], shared_bytes=out[2])
                 if kernel == "k6":
                     row["k2_plus_k7_ms"] = med[f"k2_plus_k7_{i}"]
                 print(json.dumps(row), flush=True)

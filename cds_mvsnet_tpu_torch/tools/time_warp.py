@@ -8,20 +8,24 @@ Each ``DIR`` holds a ``warp.cu`` (and the headers it includes), such as the
 unpacked beside it. Every ``warp.cu`` is built with the flags of
 ``ops/kernels/_build.py`` (all ``nvcc`` runs at once) and its
 ``warp_entropy_launch`` (K1) is timed at the three stage shapes of the eval
-main path (1152x864, V=5, ndepths 48/32/8), and its ``warp_sim_launch`` (K5's
-forward), where the source has one, at the three of the train point
-(512x640 with refinement, per batch element), on inputs shaped and drawn
-as in ``chip_smoke.py``'s kernels phase. Rounds alternate the order of the
-sources (A B C, C B A, ...); a time is the median over rounds of the mean of
-``--reps`` launches between CUDA events (``tools/_timing.py``). One JSON
-line per source, kernel and stage, with ``in_prod``'s share of values equal
-to the plain version's and its largest difference; the card's
-``nvidia-smi`` name and power limit come first.
+main path (1152x864, V=5, ndepths 48/32/8), of the DTU protocol point
+(576x768 under refinement) and of the stream point (480x640, ndepths
+128/32/8), and its ``warp_sim_launch`` (K5's forward), where the source has
+one, at the three of the train point (512x640 with refinement, per batch
+element), on inputs shaped and drawn as in ``chip_smoke.py``'s kernels
+phase. Rounds alternate the order of the sources (A B C, C B A, ...); a
+time is the median over rounds of the mean of ``--reps`` launches between
+CUDA events (``tools/_timing.py``). One JSON line per source, kernel and
+stage, with ``in_prod``'s share of values equal to the plain version's,
+its largest difference, whether it equals the first source's bit for bit
+and the largest entropy (or sim) difference to the plain version; the
+card's ``nvidia-smi`` name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import sys
@@ -42,9 +46,9 @@ D_FULL = 192
 
 
 def cases(dev) -> list[tuple]:
-    """``(kernel, stage, src, ref, hyp, rt)`` at the shapes of chip_smoke.py's
-    kernels phase: K1 at the eval main path's, K5's forward at the train
-    point's."""
+    """``(kernel, point, stage, src, ref, hyp, rt)`` at the shapes of
+    chip_smoke.py's kernels phase: K1 at the serve, protocol and stream
+    points', K5's forward at the train point's."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def uniform(shape, lo=-1.0, hi=1.0, dtype=torch.bfloat16):
@@ -63,25 +67,28 @@ def cases(dev) -> list[tuple]:
 
     interval = 480.0 / (D_FULL - 1)
     out = []
-    H, W = 864, 1152
-    serve = to_tensors(textured_plane_batch(V=5, H=H, W=W, D=D_FULL, seed=0), dev)
-    for s, (C, D, h, w) in enumerate([(32, 48, H // 4, W // 4), (16, 32, H // 2, W // 2), (8, 8, H, W)], start=1):
-        rt = rt_of(serve["proj_matrices"][f"stage{s}"])
-        hyp = hyp_of(s, D, h, w, (0.0, 2.0, 1.0)[s - 1], interval)
-        out.append(("warp_entropy", s, uniform((h, w, C)), uniform((C, h, w)), hyp, rt))
+    for point, H, W, ndepths in (("serve", 864, 1152, NDEPTHS), ("protocol", 576, 768, NDEPTHS),
+                                 ("stream", 480, 640, (128, 32, 8))):
+        cams = to_tensors(textured_plane_batch(V=2, H=H, W=W, D=D_FULL, seed=0), dev)["proj_matrices"]
+        for s, (C, D) in enumerate(zip((32, 16, 8), ndepths), start=1):
+            h, w = H // 2 ** (3 - s), W // 2 ** (3 - s)
+            hyp = hyp_of(s, D, h, w, (0.0, 2.0, 1.0)[s - 1], interval)
+            out.append(("warp_entropy", point, s, uniform((h, w, C)), uniform((C, h, w)), hyp,
+                        rt_of(cams[f"stage{s}"])))
     train = to_tensors(synthetic_batch(B=2, V=5, H=512, W=640, D=D_FULL, refine=True, with_gt=True, seed=0), dev)
     for s, (C, D) in enumerate(zip((32, 16, 8), NDEPTHS), start=1):
         scale = 2 ** (3 - s)
         h, w = 256 // scale, 320 // scale
         rt = rt_of(train["proj_matrices"][f"stage{s}"])
         hyp = hyp_of(s, D, h, w, 4.0 / scale, interval)
-        out.append(("warp_sim", s, uniform((h, w, C)), uniform((C, h, w)), hyp, rt))
+        out.append(("warp_sim", "train", s, uniform((h, w, C)), uniform((C, h, w)), hyp, rt))
     return out
 
 
 def launcher(lib, kernel, src, ref, hyp, rt):
-    """A closure launching ``kernel`` of ``lib`` on the case, and its
-    ``in_prod``; None where the source has no such entry point."""
+    """A closure launching ``kernel`` of ``lib`` on the case, its ``in_prod``
+    and its entropy (or sim); None where the source has no such entry
+    point."""
     if not hasattr(lib, f"{kernel}_launch"):
         return None
     fn = typed(lib, f"{kernel}_launch", ARGTYPES)
@@ -98,7 +105,7 @@ def launcher(lib, kernel, src, ref, hyp, rt):
         if err:
             raise RuntimeError(f"{kernel}: CUDA error {err}")
 
-    return run, in_prod
+    return run, in_prod, out
 
 
 def main(argv=None) -> int:
@@ -115,19 +122,30 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         libs = [lib["warp"] for lib in build(args.dirs, ("warp",), Path(tmp))]
-        for kernel, stage, src, ref, hyp, rt in cases(dev):
-            want = (K.warp_entropy_plain if kernel == "warp_entropy" else K.warp_sim_plain)(src, ref, hyp, rt)[0]
+        for d, lib in zip(args.dirs, libs):  # K1's launch plan, where the source reports one
+            if hasattr(lib, "warp_entropy_plan"):
+                for C, h, w in ((32, 216, 288), (16, 432, 576), (8, 864, 1152)):
+                    out = (ctypes.c_int * 6)()
+                    if typed(lib, "warp_entropy_plan", [I, I, I, P])(C, h, w, ctypes.cast(out, P)) == 0:
+                        keys = ("lanes", "pixels", "shared_bytes", "blocks", "registers", "blocks_per_sm")
+                        print(json.dumps({"source": str(d), "plan": [C, h, w], **dict(zip(keys, out))}), flush=True)
+        for kernel, point, stage, src, ref, hyp, rt in cases(dev):
+            want, want_out = (K.warp_entropy_plain if kernel == "warp_entropy" else K.warp_sim_plain)(
+                src, ref, hyp, rt)
             runs = {i: r for i, r in enumerate(launcher(lib, kernel, src, ref, hyp, rt) for lib in libs)
                     if r is not None}
             times = alternate({i: r[0] for i, r in runs.items()}, args.rounds, args.reps)
+            first = min(runs)
             for i in runs:
                 d = (runs[i][1].float() - want.float()).abs()
                 print(json.dumps({
-                    "source": str(args.dirs[i]), "kernel": kernel, "stage": stage,
+                    "source": str(args.dirs[i]), "kernel": kernel, "point": point, "stage": stage,
                     "shape": list(runs[i][1].shape), "ms": statistics.median(times[i]), "ms_rounds": times[i],
                     "in_prod_exact_frac": float((d == 0).float().mean()), "in_prod_max_abs_diff": float(d.max()),
+                    "in_prod_equals_first": torch.equal(runs[i][1], runs[first][1]),
+                    "out_max_abs_diff": float((runs[i][2] - want_out).abs().max()),
                 }), flush=True)
-            del runs, want
+            del runs, want, want_out
     return 0
 
 

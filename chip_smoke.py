@@ -96,6 +96,7 @@ REQUESTS = 3
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
 SEED = 0
 # the train point (tools/bench_train.py of the JAX package)
 TRAIN_B, TRAIN_H, TRAIN_W = 2, 512, 640
@@ -154,13 +155,16 @@ PROBE_NAMES = tuple(PER_PROBE_RUN)
 # kernels whose launches the fp32 product run counts (K2's wrapper serves both routes)
 FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
-# the kernels' symbols as the profiler names them (csrc/*.cu): K2 in bf16
-# is conv3d_mma_kernel, in fp32 (and K7) conv3d_bn_relu_kernel; K6 in bf16
+# the kernels' symbols as the profiler names them (csrc/*.cu): K1
+# warp_entropy_kernel (warp_kernel<C, false> in earlier commits), K5's forward
+# warp_kernel; K2 in bf16 conv3d_mma_kernel, in fp32 conv3d_tf32_kernel
+# (conv3d_bn_relu_kernel in earlier commits), K7 conv3d_bn_relu_kernel; K6 in bf16
 # conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel; K3
 # exit_softargmin_kernel<cols, rows, planes> (a plain function, named
 # without "void", in earlier commits, whose csrc this script also reads), K4
 # dynconv_kernel<OA>, K9 gather_kernel<T, C> (the lane-group gather)
-KERNEL_SYMBOLS = ("void warp_kernel", "void conv3d_bn_relu_kernel", "void conv3d_mma_kernel",
+KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_bn_relu_kernel",
+                  "void conv3d_mma_kernel", "void conv3d_tf32_kernel",
                   "void exit_softargmin_kernel", "exit_softargmin_kernel",
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
@@ -411,7 +415,9 @@ def cascade_kernels(torch, dev, uniform, record, s, shape, hyp, rt):
     import torch.nn.functional as F
 
     from cds_mvsnet_tpu_torch.ops import kernels as K
+    from cds_mvsnet_tpu_torch.ops.kernels import warp as k1_module
 
+    card_plan = getattr(k1_module, "warp_entropy_card_plan", None)  # absent in earlier commits' packages
     C, D, h, w = shape
     # K1: tanh-range features; channels-last source
     src = uniform((h, w, C))
@@ -433,7 +439,9 @@ def cascade_kernels(torch, dev, uniform, record, s, shape, hyp, rt):
            timed(torch, lambda: K.warp_entropy(src, ref, hyp, rt), 10),
            timed(torch, lambda: K.warp_entropy_plain(src, ref, hyp, rt), 2),
            None, bytes_k1, flops_k1, PEAK_FP32_FLOPS,
-           {"entropy_max_abs_err": float(d_ent.max()), "in_prod_exact_frac": float((d_ip == 0).float().mean())})
+           {"entropy_max_abs_err": float(d_ent.max()), "in_prod_exact_frac": float((d_ip == 0).float().mean()),
+            "device_ms": kernel_device_ms(torch, lambda: K.warp_entropy(src, ref, hyp, rt), "warp_entropy_kernel"),
+            "plan": card_plan(C, h, w) if card_plan else None})
     del ip_k, ip_p, d_ip, tol_ip
 
     # K2: mean volume in, folded conv0 weights
@@ -791,7 +799,9 @@ def protocol_kernels(torch, dev, uniform, record):
                                                                   "gather_kernel")})
             del src, out, want, d
 
-        # K2 in fp32: sums of 27·C fp32 terms in another order (TF32 off)
+        # K2 in fp32: 3xTF32 products of each term, 27·C terms summed in
+        # another order (TF32 off in the plain version and cuDNN); its bound
+        # counts the three TF32 MMAs, the fp32 FMA floor of one conv beside it
         vol = uniform((C, D, h, w), dtype=torch.float32)
         bound_w = (27 * C) ** -0.5
         wk = uniform((8, C, 3, 3, 3), -bound_w, bound_w, torch.float32)
@@ -807,8 +817,10 @@ def protocol_kernels(torch, dev, uniform, record):
                timed(torch, lambda: K.conv3d_bn_relu(vol, wk, bk), 5),
                timed(torch, lambda: K.conv3d_bn_relu_plain(vol, wk, bk), 3),
                timed(torch, lambda: F.conv3d(vol[None], wk, bk, padding=1).relu_(), 5),
-               vol.numel() * 4 + wk.numel() * 4 + 32 + y_k.numel() * 4, 2 * 27 * C * 8 * D * h * w, PEAK_FP32_FLOPS,
-               {"shape": [C, D, h, w], "bf16_ms": timed(torch, lambda: K.conv3d_bn_relu(vol16, wk, bk), 5)})
+               vol.numel() * 4 + wk.numel() * 4 + 32 + y_k.numel() * 4, 3 * 2 * 27 * C * 8 * D * h * w, PEAK_TF32_FLOPS,
+               {"shape": [C, D, h, w], "bf16_ms": timed(torch, lambda: K.conv3d_bn_relu(vol16, wk, bk), 5),
+                "fma_floor_ms": 2 * 27 * C * 8 * D * h * w / PEAK_FP32_FLOPS * 1e3,
+                "device_ms": kernel_device_ms(torch, lambda: K.conv3d_bn_relu(vol, wk, bk), "conv3d_tf32_kernel")})
         del vol, vol16, y_k, y_p, terms, d, px, py, hyp
     # K4 on conv01's stack of 2(V-1) images at the cascade's input (576x768)
     dynconv_kernel(torch, uniform, tagged(record, "protocol"), 2 * (V - 1), DTU_H // 2, DTU_W // 2)

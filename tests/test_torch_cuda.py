@@ -64,6 +64,42 @@ def test_warp_entropy_matches_plain(gen, C, per_pixel):
 
 
 @pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("h,w", [(19, 37), (3, 7), (5, 288), (9, 288), (12, 288)])
+def test_warp_entropy_tiles(gen, C, per_pixel, h, w):
+    """K1's blocks of P consecutive pixels (128 at C = 32, else 256): hw no
+    multiple of P (scalar stores where hw % 8 != 0, 16-byte stores and a
+    ragged tail otherwise), hw below P, and w = 288 as serve stage 1; the
+    source larger than the reference."""
+    H, W, D = h + 5, w + 9, 9
+    src, ref = uniform(gen, (H, W, C)), uniform(gen, (C, h, w))
+    rt = torch.tensor([1.01, 0.02, -1.5, -0.015, 0.99, 2.0, 1e-4, -2e-4, 1.0, 8.0, -4.0, 0.05],
+                      device="cuda")
+    depth = torch.linspace(2.0, 40.0, D, device="cuda")
+    if per_pixel:
+        depth = (depth[:, None, None] * uniform(gen, (1, h, w), 0.8, 1.2, torch.float32)).contiguous()
+    before = K.warp_entropy.launches
+    ip, ent = K.warp_entropy(src, ref, depth, rt)
+    torch.cuda.synchronize()
+    assert K.warp_entropy.launches == before + 1
+    ip_p, ent_p = K.warp_entropy_plain(src, ref, depth, rt)
+    assert within_one_ulp(ip, ip_p, 2 ** -8)
+    assert float((ent - ent_p).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_warp_entropy_plan_matches_launcher(gen, C):
+    """The launcher's plan on the card is ``launch_plan``'s."""
+    from cds_mvsnet_tpu_torch.ops.kernels.warp import launch_plan, warp_entropy_card_plan
+
+    for h, w in [(216, 288), (19, 37), (3, 7)]:
+        card, plan = warp_entropy_card_plan(C, h, w), launch_plan(C, h, w)
+        keys = ("lanes", "pixels", "shared_bytes", "blocks")
+        assert {k: card[k] for k in keys} == {k: plan[k] for k in keys}
+        assert card["blocks_per_sm"] >= 1 and card["registers"] > 0
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
 def test_conv3d_bn_relu_matches_plain(gen, C):
     vol = uniform(gen, (C, 5, 11, 45))
     w = uniform(gen, (8, C, 3, 3, 3), -(27 * C) ** -0.5, (27 * C) ** -0.5, torch.float32)
@@ -396,6 +432,41 @@ def test_conv3d_bn_relu_fp32_matches_plain(gen, C):
     assert bool(((got - want).abs() <= 1e-5 * terms + 1e-7).all())
 
 
+def tf32(x):
+    """``cvt.rna.tf32.f32`` on finite values (tests/test_torch_conv3d_tf32.py)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(5, 11, 45), (7, 13, 37), (128, 7, 35), (1, 1, 1), (3, 4, 33)])
+@pytest.mark.parametrize("C,O", [(8, 8), (16, 8), (32, 8), (12, 8), (3, 8), (8, 16), (16, 16), (12, 16)])
+def test_conv3d_bn_relu_fp32_tensor_cores_on_ragged_shapes(gen, C, O, shape):
+    """K2 in fp32 (3xTF32) on shapes its 4x4x32 output tile does not divide,
+    D = 128 as the stream's stage 1 included, and at any C: a ragged chunk
+    of channels is padded with zeros."""
+    vol, w, b = conv_rig(gen, C, O, torch.float32, shape)
+    before = K.conv3d_bn_relu.launches
+    got = K.conv3d_bn_relu(vol, w, b)
+    torch.cuda.synchronize()
+    assert K.conv3d_bn_relu.launches == before + 1
+    assert conv_close(got, K.conv3d_bn_relu_plain(vol, w, b), vol, w, b)
+
+
+@pytest.mark.parametrize("C,O", [(8, 8), (32, 8), (16, 16), (12, 16)])
+def test_conv3d_bn_relu_fp32_tensor_cores_cancellation(gen, C, O):
+    """Mixed-sign weights at 4x the usual bound, inputs spanning 2^8 in
+    magnitude and no bias: outputs near 0 from large terms. The kernel's
+    three TF32 products hold the fp32 tolerance; one TF32 product does not."""
+    vol = uniform(gen, (C, 6, 12, 37), dtype=torch.float32) * torch.exp2(
+        torch.randint(-4, 5, (C, 6, 12, 37), generator=gen, device="cuda").float())
+    bound = 4 * (27 * C) ** -0.5
+    w = uniform(gen, (O, C, 3, 3, 3), -bound, bound, torch.float32)
+    b = torch.zeros(O, device="cuda")
+    want = K.conv3d_bn_relu_plain(vol, w, b)
+    assert conv_close(K.conv3d_bn_relu(vol, w, b), want, vol, w, b)
+    one_tf32 = torch.relu(torch.nn.functional.conv3d(tf32(vol)[None], tf32(w), padding=1)[0])
+    assert not conv_close(one_tf32, want, vol, w, b)
+
+
 def test_fused_warp_train_raises_rather_than_fall_back(gen):
     src, ref, depth, rt = warp_rig(gen, 8, False)
     with pytest.raises(ValueError, match="bf16"):
@@ -494,8 +565,10 @@ def test_conv3d_down_matches_plain(gen, dtype, C, O):
 def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     """K6 on shapes no tile divides: out0 against K2's plain version, out1
     against K7's plain version on the kernel's own out0 (so a flipped ulp of
-    out0 does not propagate); and K6 computes exactly what K2 and K7 do, so
-    every voxel of out0 is stored once, by the block that owns it."""
+    out0 does not propagate); and K6 computes exactly what K7 does and, in
+    bf16, what K2 does (their shared body, conv3d_mma.cuh), so every voxel
+    of out0 is stored once, by the block that owns it. In fp32 K6's conv0 is
+    the direct fp32 body and K2 the 3xTF32 one: both within the tolerance."""
     vol, w0, b0 = conv_rig(gen, C, 8, dtype, shape)
     w1 = uniform(gen, (16, 8, 3, 3, 3), -(27 * 8) ** -0.5, (27 * 8) ** -0.5, torch.float32)
     b1 = uniform(gen, (16,), -0.1, 0.1, torch.float32)
@@ -505,7 +578,9 @@ def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     assert K.conv3d_front_fused.launches == before + 1
     assert conv_close(out0, K.conv3d_bn_relu_plain(vol, w0, b0), vol, w0, b0)
     assert conv_close(out1, K.conv3d_down_plain(out0, w1, b1), out0, w1, b1, stride=2)
-    assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0)) and torch.equal(out1, K.conv3d_down(out0, w1, b1))
+    assert torch.equal(out1, K.conv3d_down(out0, w1, b1))
+    if dtype == torch.bfloat16:
+        assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0))
 
 
 @pytest.mark.parametrize("C", [8, 16, 32])
