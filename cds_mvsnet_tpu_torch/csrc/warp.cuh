@@ -65,12 +65,13 @@ __device__ __forceinline__ Footprint project(const float* r, const float* L, flo
 
 // acc[c] = sum over in-bounds corners, in corner order, of w_k * src[corner_k, c],
 // for a channels-last bf16 or fp32 source. kExact rounds each product and sum
-// as the plain version does, so the warped values equal its bit for bit: K5
+// as the plain version does, so the warped values equal its bit for bit: K8
+// (warp_coords.cu), K9 (gather.cu), and K5 through the lane form below
 // (forward and the backward's recompute), whose train step is held against
 // the plain path's, and at random weights that step's gradients move by 0.13
-// relative L2 when 2e-5 of the warped values sit one bf16 ulp off; and K9
-// (gather.cu). Otherwise the multiply-adds fuse, as K1's gather_lane below
-// does: the op-by-op gather cost K1 3-4 % of its time.
+// relative L2 when 2e-5 of the warped values sit one bf16 ulp off.
+// Otherwise the multiply-adds fuse, as K1's gather_lane below does: the
+// op-by-op gather cost K1 3-4 % of its time.
 template <int C, bool kExact, typename T>
 __device__ __forceinline__ void gather(const T* __restrict__ src, const Footprint& f, int W,
                                        float* acc) {
@@ -95,13 +96,14 @@ __device__ __forceinline__ void gather(const T* __restrict__ src, const Footprin
   }
 }
 
-// K1's lane-group form of gather<C, false>: the lane that holds channels
+// The lane-group form of gather<C, kExact>: the lane that holds channels
 // c0 .. c0 + 8V - 1 of a bf16 pixel loads them from each corner in V
 // 16-byte loads (addresses clamped into the image, so the loads do not wait
-// for the bounds test) and sums them with the same fused multiply-adds in
-// corner order, skipping an out-of-bounds corner as gather<> does: each
-// channel's value equals gather<C, false>'s bit for bit.
-template <int V>
+// for the bounds test) and sums them in corner order with the same
+// arithmetic, skipping an out-of-bounds corner as gather<> does: each
+// channel's value equals gather<C, kExact>'s bit for bit. K1 fuses
+// (kExact = false); K5 rounds op by op.
+template <int V, bool kExact = false>
 __device__ __forceinline__ void gather_lane(const bf16* __restrict__ src, const Footprint& f, int H, int W, int C,
                                             int c0, float (&acc)[8 * V]) {
 #pragma unroll
@@ -119,7 +121,54 @@ __device__ __forceinline__ void gather_lane(const bf16* __restrict__ src, const 
       float x[8];
       unpack8(q, x);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[8 * v + i] = fmaf(x[i], f.wts[k], acc[8 * v + i]);
+      for (int i = 0; i < 8; ++i)
+        acc[8 * v + i] = kExact ? __fadd_rn(acc[8 * v + i], __fmul_rn(x[i], f.wts[k]))
+                                : fmaf(x[i], f.wts[k], acc[8 * v + i]);
     }
   }
 }
+
+// The lane tile of K1 (warp_entropy_kernel) and K5 (warp_kernel,
+// warp_sim_backward_kernel). A block of kThreads threads owns P consecutive
+// pixels of the flattened (h, w) grid; a pixel's C channels go to G = C / CL
+// lanes of CL channels (K1 and K5's forward: 16, one lane of 8 at C = 8; K5's
+// backward: 8), and a warp to PT pixels. A warp passes one plane of
+// (C, D, h, w) bf16 data (in_prod, or its cotangent) through a (C, PT)
+// sub-tile in shared memory, so that it leaves or arrives as 16-byte
+// vectors, rows of PT pixels of a (c, d) plane.
+namespace lanes {
+constexpr int kThreads = 256;
+template <int C, int CL_ = (C >= 16 ? 16 : 8)>
+struct Tile {
+  static constexpr int CL = CL_;               // channels a lane
+  static constexpr int V = CL / 8;             // 16-byte vectors a lane and corner
+  static constexpr int G = C / CL;             // lanes a pixel
+  static constexpr int P = kThreads / G;       // pixels a block
+  static constexpr int PT = 32 / G;            // pixels a warp
+  static constexpr int VROW = PT / 8;          // 16-byte vectors a sub-tile row
+  static constexpr int BUF = C * PT;           // bf16 values a sub-tile
+  static_assert(BUF / 8 == 32 * V, "V 16-byte vectors of a sub-tile a lane");
+};
+// The 16-byte slot of vector j of sub-tile row c: row-major, XOR-ed with
+// 2 * (c / CL), so that the lanes of a pixel (rows CL apart) reach
+// different banks.
+template <int C, int CL = Tile<C>::CL>
+__device__ __forceinline__ int slot(int c, int j) {
+  return (c * Tile<C, CL>::VROW + j) ^ (2 * (c / CL));
+}
+}  // namespace lanes
+
+// K5's grid: pixel tiles x plane chunks of DC planes, as many chunks as
+// give at least kTargetBlocks blocks (two waves of two 256-thread blocks on
+// each of the H100's 132 SMs) where D allows: with want = min(D,
+// ceil(kTargetBlocks / tiles)), DC = floor(D / want) and ceil(D / DC) >= want
+// chunks, the last one ragged. Mirrored by
+// ops/kernels/warp_vjp.py::launch_plan.
+namespace k5 {
+constexpr int kTargetBlocks = 2 * 2 * 132;
+inline int chunk_planes(int D, int tiles) {
+  int want = (kTargetBlocks + tiles - 1) / tiles;
+  want = want < D ? want : D;
+  return D / want;
+}
+}  // namespace k5

@@ -11,9 +11,9 @@ features bilinearly with zeros padding, writes ``in_prod = ref ⊙ warped``
 ``(C, D, h, w)`` in bf16, and folds ``sim = Σ_C ref·warped`` into an online
 ``(m, s, u)`` so that the entropy of ``softmax_D(sim)`` is
 ``m + log s − u/s`` without a ``(D, h, w)`` buffer. K5's forward
-(``ops/kernels/warp_vjp.py``) keeps the one-thread-a-pixel body with ``sim``
-stored instead (``warp_kernel<C>``); the projection and the gathers live in
-``csrc/warp.cuh``.
+(``ops/kernels/warp_vjp.py``, ``warp_kernel<C>``) takes K1's lane tile over
+plane chunks and stores ``sim`` instead; the projection, the gathers and the
+tile live in ``csrc/warp.cuh``.
 
 Bound on the H100: memory. The ``in_prod`` write dominates: about
 199 / 304 / 195 MB per launch at stages 1/2/3 of the 1152x864 main path

@@ -5,8 +5,9 @@ Replaces ``cds_mvsnet_tpu/ops/pallas/warp_vjp.py::fused_warp_train``
 (``warp_pallas_v8(..., emit_entropy=False)`` :53-56, ``pl.pallas_call`` at
 ``warp.py:1419``); its backward (:92-104) is the VJP of the bilinear gather,
 which the JAX package leaves to XLA. Kernel sources: ``csrc/warp.cu``
-(forward: one thread a pixel, the sim epilogue, ``warp_kernel<C>``)
-and ``csrc/warp_vjp.cu`` (backward); both include ``csrc/warp.cuh``.
+(forward, ``warp_kernel<C>``) and ``csrc/warp_vjp.cu`` (backward,
+``warp_sim_backward_kernel<C>`` and a finishing kernel); both include
+``csrc/warp.cuh``.
 
 - :func:`warp_sim` ``(src (H,W,C), ref (C,h,w), depth, rt) -> (in_prod
   (C,D,h,w) bf16, sim (D,h,w) fp32)``: K1 with ``sim = Σ_C ref·warped``
@@ -21,41 +22,105 @@ and ``csrc/warp_vjp.cu`` (backward); both include ``csrc/warp.cuh``.
   and no ``(C, D, h, w)`` volume: the backward recomputes the gather.
 
 Bound on the H100: memory. The forward writes ``in_prod``, 15.7 / 21.0 /
-10.5 MB per launch at stages 1/2/3 of the 512x640 train path (B·(V−1)
-sweeps and as many one-plane GT warps per stage); the backward reads a
-cotangent of the same size. Design of the backward: one thread per
-reference pixel loops over the planes as the forward does, recomputes the
-four corners, weights and the bf16 warped value, keeps ``d_ref`` in
-registers (no atomics), and adds ``w_k·g·ref`` into an fp32 ``d_src`` with
-16-byte vector atomics, which the source map (0.3-2.6 MB) keeps in L2; a
-second small kernel rounds ``d_src`` to bf16. Both kernels project, weight
-and gather with the plain version's fp32 roundings (``csrc/warp.cuh``;
-K1 fuses its gather's multiply-adds), so the forward's ``in_prod`` and the
-backward's warped values equal the plain version's bit for bit: at random
-weights the train step's gradients move by 0.13 relative L2 when 2e-5 of the
-warped values sit one bf16 ulp off, which would hide a faulty backward from
-the card's step check. Atomics make
-the order of additions, and so the last bits of ``d_src``, vary from run to
-run: the card check compares with the plain version within a tolerance, not
-bit for bit.
+10.5 MB per launch at the sweeps of stages 1/2/3 of the 512x640 train path
+(B·(V−1) sweeps and as many one-plane GT warps per stage); the backward
+reads a cotangent of the same size. Design (:func:`launch_plan`): the grid
+is pixel tiles × plane chunks, so that the train shapes (5,120 to 81,920
+pixels) fill the card: a block of 256 threads owns consecutive pixels of
+the flattened reference, a pixel's channels split over lanes (16 channels a
+lane in the forward, as K1, and 8 in the backward), and a chunk holds as
+many planes as still leave two waves of blocks (528) where D allows. Both
+kernels project, weight and gather with the plain version's fp32 roundings
+(``csrc/warp.cuh``: ``gather_lane<V, true>`` rounds op by op, K1's fuses),
+so the forward's ``in_prod`` and the backward's warped values equal the
+plain version's bit for bit: at random weights the train step's gradients
+move by 0.13 relative L2 when 2e-5 of the warped values sit one bf16 ulp
+off, which would hide a faulty backward from the card's step check.
+``in_prod`` leaves through shared memory in 16-byte evict-first stores (as
+K1's), and its cotangent arrives the same way in 16-byte streaming loads;
+``sim`` is the shuffle sum of a pixel's lanes. The backward keeps each
+chunk's ``d_ref`` partial sums in registers and writes them to an fp32
+scratch ``(chunks, C, h, w)``; a finishing kernel sums the partials in
+chunk order and rounds them to bf16, so ``d_ref`` does not vary from run to
+run, and rounds ``d_src``. ``d_src`` takes ``w_k·g·ref`` by 16-byte fp32
+atomics into a buffer the launcher zeroes; at about 80 G a second on the
+H100 they set the pace of a kernel that adds every term (PERF.md). But a
+pixel's projection moves by a fraction
+of a source pixel from one plane to the next, so each lane sums its four
+corners in registers while they stay put, adds them to ``d_src`` only when
+they move, and at the chunk's end hands the corners it shares with the
+pixel to its right to that pixel's lane. The atomics' order, and so the
+last bits of ``d_src``, vary from run to run: the card check compares with
+the plain version within a tolerance.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
-from .warp import _chunk, check_inputs, project, warp_sim_plain
+from .warp import CHANNELS, _chunk, check_inputs, project, warp_sim_plain
 
 __all__ = [
     "FusedWarpTrain",
     "fused_warp_train",
+    "launch_plan",
+    "card_plan",
     "warp_sim",
     "warp_sim_plain",
     "warp_sim_backward",
     "warp_sim_backward_plain",
 ]
+
+THREADS = 256  # a block of K5's kernels (lanes::kThreads in csrc/warp.cuh)
+TARGET_BLOCKS = 2 * 2 * 132  # k5::kTargetBlocks: two waves of two blocks on 132 SMs
+
+
+def launch_plan(C: int, D: int, h: int, w: int, kernel: str) -> dict:
+    """K5's launch plan for ``kernel`` ("forward" or "backward") as
+    ``csrc/warp.cuh`` (``lanes``, ``k5``) and ``csrc/warp_vjp.cu``
+    (``k5::BwdTile``) make it: ``lanes`` a pixel (channels in lanes of 16,
+    of 8 at C = 8 and in the backward), the ``pixels`` of a block
+    (consecutive in the flattened reference) and of each of its warps
+    (``warp_pixels``), the pixel ``tiles`` and the last one's ``tail``, the
+    ``chunk`` of planes a block and the ``chunks`` of D (the last one
+    ``last_chunk`` planes), the ``blocks``, the ``shared_bytes`` of a block
+    (two buffers of one plane's ``(C, warp_pixels)`` bf16 sub-tile a warp),
+    the backward's fp32 ``d_ref`` scratch (``scratch_bytes``, 0 in the
+    forward), and whether the ``(c, d)`` rows of ``in_prod`` and its
+    cotangent take 16-byte vectors (``vector_io``)."""
+    require(kernel in ("forward", "backward"), f"launch_plan: kernel {kernel!r}")
+    require(C in CHANNELS, f"launch_plan: C={C} not in {CHANNELS}")
+    require(D >= 1 and h * w >= 1, f"launch_plan: D={D}, h x w = {h} x {w}")
+    lanes = C // (8 if kernel == "backward" or C == 8 else 16)
+    pixels = THREADS // lanes
+    tiles = -(-h * w // pixels)
+    want = min(D, -(-TARGET_BLOCKS // tiles))  # chunks wanted
+    chunk = D // want
+    chunks = -(-D // chunk)
+    return {"lanes": lanes, "pixels": pixels, "warp_pixels": 32 // lanes, "tiles": tiles,
+            "tail": h * w - (tiles - 1) * pixels, "chunk": chunk, "chunks": chunks,
+            "last_chunk": D - (chunks - 1) * chunk, "blocks": tiles * chunks, "shared_bytes": 2 * C * pixels * 2,
+            "scratch_bytes": chunks * C * h * w * 4 if kernel == "backward" else 0, "vector_io": h * w % 8 == 0}
+
+
+def card_plan(kernel: str, C: int, D: int, h: int, w: int) -> dict:
+    """The launcher's own plan on the card (``warp_sim_plan`` or
+    ``warp_sim_backward_plan``, by ``kernel`` "forward" or "backward"): the
+    keys of :func:`launch_plan` that it sets, the ``registers`` a thread and
+    the resident ``blocks_per_sm``."""
+    keys = ["lanes", "pixels", "chunk", "chunks", "blocks", "registers", "blocks_per_sm", "shared_bytes"]
+    lib_name, fn_name = {"forward": ("warp", "warp_sim_plan"),
+                         "backward": ("warp_vjp", "warp_sim_backward_plan")}[kernel]
+    if kernel == "backward":
+        keys.append("scratch_bytes")
+    out = (ctypes.c_int * len(keys))()
+    lib, fn = entry(lib_name, fn_name, [I, I, I, I, P])
+    _build.check(lib, fn(C, D, h, w, ctypes.cast(out, P)), fn_name)
+    return dict(zip(keys, list(out)))
 
 
 def warp_sim(src: torch.Tensor, ref: torch.Tensor, depth: torch.Tensor, rt: torch.Tensor):
@@ -135,13 +200,15 @@ def warp_sim_backward(src, ref, depth, rt, g_in_prod, g_sim):
     if not on_card("warp_sim_backward", src, ref, depth, rt, g_in_prod, g_sim):
         return warp_sim_backward_plain(src, ref, depth, rt, g_in_prod, g_sim)
     require(src.data_ptr() % 16 == 0, "warp_sim_backward: src must be 16-byte aligned")
-    acc = torch.zeros((H, W, C), dtype=torch.float32, device=src.device)
+    chunks = launch_plan(C, D, h, w, "backward")["chunks"]
+    acc = torch.empty((H, W, C), dtype=torch.float32, device=src.device)  # zeroed by the launcher
+    part = torch.empty((chunks, C, h, w), dtype=torch.float32, device=src.device)
     d_src = torch.empty((H, W, C), dtype=torch.bfloat16, device=src.device)
     d_ref = torch.empty((C, h, w), dtype=torch.bfloat16, device=src.device)
     lib, fn = entry("warp_vjp", "warp_sim_backward_launch",
-                    [P, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, P])
+                    [P, P, P, I, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P])
     err = fn(ptr(src), ptr(ref), ptr(depth), int(depth.ndim == 3), ptr(rt), ptr(g_in_prod), ptr(g_sim),
-             ptr(acc), ptr(d_src), ptr(d_ref), C, H, W, D, h, w, stream(src.device))
+             ptr(acc), ptr(part), chunks, ptr(d_src), ptr(d_ref), C, H, W, D, h, w, stream(src.device))
     _build.check(lib, err, "warp_sim_backward")
     warp_sim_backward.launches += 1
     return d_src, d_ref

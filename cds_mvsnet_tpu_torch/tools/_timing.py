@@ -1,5 +1,6 @@
 """What the ``time_*`` tools share: build the same kernel sources from several
-directories, time closures between CUDA events, alternate their order.
+directories, time closures between CUDA events or by device time under
+``torch.profiler``, alternate their order.
 
 A tool compares the ``csrc`` of this checkout with that of another commit
 unpacked beside it, in one process on one card, so that both see the same
@@ -9,6 +10,7 @@ clocks, power limit and host.
 from __future__ import annotations
 
 import ctypes
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -23,7 +25,8 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def build(dirs: list[Path], names: tuple[str, ...], out: Path) -> list[dict[str, ctypes.CDLL]]:
     """``DIR/<name>.cu`` of every directory, built with the flags of
     ``ops/kernels/_build.py`` (all ``nvcc`` runs at once), as
-    ``[{name: library}]`` in the order of ``dirs``."""
+    ``[{name: library}]`` in the order of ``dirs``; each library keeps
+    ``nvcc``'s output (ptxas ``-v``) as ``ptxas_log``."""
     procs = []
     for i, d in enumerate(dirs):
         for name in names:
@@ -37,7 +40,65 @@ def build(dirs: list[Path], names: tuple[str, ...], out: Path) -> list[dict[str,
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {dirs[i]}/{name}.cu:\n{log}")
         libs[i][name] = ctypes.CDLL(str(lib))
+        libs[i][name].ptxas_log = log
     return libs
+
+
+def ptxas_registers(log: str, kernel: str) -> dict[str, list[int]]:
+    """Registers a thread and spill-store bytes of each entry function whose
+    mangled name holds ``kernel``, from ptxas ``-v`` output:
+    ``{mangled name: [registers, spill bytes]}``."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            out[name] = [int(m.group(1)), spill]
+            name = None
+    return out
+
+
+def blocks_per_sm(registers: int, threads: int) -> int:
+    """Resident blocks an H100 SM allows a kernel with no shared memory by its
+    registers and threads: registers go to warps in units of 256 (8 a
+    thread), 65,536 an SM, at most 64 warps and 32 blocks."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-registers // 8) * 8 * 32) // warps
+    return min(by_regs, 64 // warps, 32)
+
+
+def device_ms(fn, reps: int) -> tuple[float, dict[str, float]]:
+    """One warm-up call, then ``reps`` calls of ``fn`` under
+    ``torch.profiler``: the device time of one call (every kernel and memset
+    it ran) and of each kernel by name, in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    return sum(by_name.values()), by_name
+
+
+def alternate_device(runs: dict, rounds: int, reps: int) -> dict[object, list[tuple[float, dict]]]:
+    """``device_ms`` of every closure in each of ``rounds`` rounds, the order
+    reversed every other round: the results of each, by round."""
+    out = {k: [] for k in runs}
+    for r in range(rounds):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            out[k].append(device_ms(runs[k], reps))
+    return out
 
 
 def typed(lib: ctypes.CDLL, entry: str, argtypes) -> object:

@@ -19,7 +19,10 @@ Phases, one JSON line each:
    of the DTU protocol point (the cascade at 576x768 under refinement), and
    K4 on that point's conv01 input;
    K5's forward and backward are checked the same way at the three stage
-   shapes of the train point (per batch element); K6 (timed beside cuDNN's
+   shapes of the train point (per batch element) and at its ground-truth
+   warps (D = 1), each row with the profiler's device time of a call, and
+   K5's launch plan at those shapes and route R3's goes on a ``k5_plan``
+   line; K6 (timed beside cuDNN's
    two calls and beside K2 then K7 apart), K7, K2 at 16 output
    channels and K8 (per view and over the 4 source views in one launch),
    which only the explicit routes run, at the serve shapes; K1-K4 again at
@@ -157,7 +160,9 @@ FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # the kernels' symbols as the profiler names them (csrc/*.cu): K1
 # warp_entropy_kernel (warp_kernel<C, false> in earlier commits), K5's forward
-# warp_kernel; K2 in bf16 conv3d_mma_kernel, in fp32 conv3d_tf32_kernel
+# warp_kernel, its backward warp_sim_backward_kernel and
+# warp_sim_backward_finish_kernel (to_bf16_kernel in earlier commits); K2 in
+# bf16 conv3d_mma_kernel, in fp32 conv3d_tf32_kernel
 # (conv3d_bn_relu_kernel in earlier commits), K7 conv3d_bn_relu_kernel; K6 in bf16
 # conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel; K3
 # exit_softargmin_kernel<cols, rows, planes> (a plain function, named
@@ -166,7 +171,8 @@ TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_bn_relu_kernel",
                   "void conv3d_mma_kernel", "void conv3d_tf32_kernel",
                   "void exit_softargmin_kernel", "exit_softargmin_kernel",
-                  "void dynconv_kernel", "void warp_sim_backward_kernel", "to_bf16_kernel", "void gather_kernel",
+                  "void dynconv_kernel", "void warp_sim_backward_kernel", "warp_sim_backward_finish_kernel",
+                  "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
                   "lane_slice_kernel", "void row_gather_kernel", "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
@@ -330,82 +336,116 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
     stream_kernels(torch, dev, uniform, tagged(record, "stream"), stream_scene)
     probe_kernels(torch, dev, record)
 
-    # K5, forward and backward, per batch element at the train point's stage
-    # shapes: source and reference share the stage resolution; stage 1 sweeps
-    # planes, stages 2 and 3 per-pixel windows (ratios 2 and 1)
-    th, tw = TRAIN_H // 2, TRAIN_W // 2  # refinement: the cascade runs at half resolution
-    for s, (C, D) in enumerate(zip((32, 16, 8), NDEPTHS), start=1):
-        scale = 2 ** (3 - s)
-        h, w = th // scale, tw // scale
-        cams = train_batch["proj_matrices"][f"stage{s}"]
-        rot, trans = relative_warp_transform(cams[:1, 0], cams[:1, 1])
-        rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
-        if s == 1:
-            hyp = torch.linspace(425.0, 905.0, D, device=dev).contiguous()
-        else:
-            centre = uniform((h, w), 560.0, 640.0, torch.float32)
-            steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
-            hyp = (centre[None] + steps[:, None, None] * (4.0 / scale) * interval).contiguous()
-        src, ref = uniform((h, w, C)), uniform((C, h, w))
-        ip_k, sim_k = K.warp_sim(src, ref, hyp, rt)
-        torch.cuda.synchronize()
-        ip_p, sim_p = K.warp_sim_plain(src, ref, hyp, rt)
-        # K1's tolerance for in_prod; sim sums C products of the same bf16
-        # values, a warped value may sit one bf16 ulp away
-        d_ip = (ip_k.float() - ip_p.float()).abs()
-        d_sim = (sim_k - sim_p).abs()
-        ok = (bool((d_ip <= 2 ** -7 * ip_p.float().abs() + 2 ** -8).all())
-              and bool((d_sim <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all()))
-        io_bytes = src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + ip_k.numel() * 2 + sim_k.numel() * 4
-        record("warp_sim", s, max(float(d_ip.max()), float(d_sim.max())),
-               "in_prod |d| <= 2^-7|plain| + 2^-8; sim |d| <= 2^-7 sum_C|in_prod| + 1e-5", ok,
-               timed(torch, lambda: K.warp_sim(src, ref, hyp, rt), 10),
-               timed(torch, lambda: K.warp_sim_plain(src, ref, hyp, rt), 3),
-               None, io_bytes, D * h * w * (11 * C + 12), PEAK_FP32_FLOPS,
-               {"shape": [C, D, h, w], "in_prod_max_abs_err": float(d_ip.max()),
-                "sim_max_abs_err": float(d_sim.max()), "in_prod_exact_frac": float((d_ip == 0).float().mean())})
-        del ip_k, ip_p, d_ip
-
-        # the backward against autograd of the plain forward (the gate, with
-        # the bf16 roundings autograd adds inside its partial sums) and
-        # against the explicit plain backward (fp32 sums, one rounding)
-        g_ip = uniform((C, D, h, w))
-        g_sim = uniform((D, h, w), dtype=torch.float32)
-        ds_k, dr_k = K.warp_sim_backward(src, ref, hyp, rt, g_ip, g_sim)
-        torch.cuda.synchronize()
-        src_g, ref_g = src.clone().requires_grad_(), ref.clone().requires_grad_()
-        outs = K.warp_sim_plain(src_g, ref_g, hyp, rt)
-        plain_bwd = lambda: torch.autograd.grad(outs, (src_g, ref_g), (g_ip, g_sim), retain_graph=True)
-        ds_p, dr_p = plain_bwd()
-        ds_e, dr_e = K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip, g_sim)
-        # the plain backward on |inputs| sums |terms| behind each element
-        abs_terms = K.warp_sim_backward_plain(src.abs(), ref.abs(), hyp, rt, g_ip.abs(), g_sim.abs())
-        errs, rels, ok = [], [], True
-        for got, want, explicit, s_abs in zip((ds_k, dr_k), (ds_p, dr_p), (ds_e, dr_e), abs_terms):
-            d = (got.float() - want.float()).abs()
-            errs.append(float(d.max()))
-            rels.append(float((got.float() - want.float()).norm() / want.float().norm()))
-            ok &= bool((d <= 2 ** -6 * (want.float().abs() + s_abs.float()) + 1e-6).all()) and rels[-1] <= 1e-2
-            d_e = (got.float() - explicit.float()).abs()
-            ok &= bool((d_e <= 2 ** -7 * (explicit.float().abs() + s_abs.float()) + 1e-6).all())
-        bwd_bytes = (src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + g_ip.numel() * 2 + g_sim.numel() * 4
-                     + ds_k.numel() * 2 + dr_k.numel() * 2)
-        record("warp_sim_backward", s, max(errs),
-               "vs autograd of the plain forward: |d| <= 2^-6(|plain| + sum|terms|) and rel L2 <= 1e-2; "
-               "vs the explicit plain backward: |d| <= 2^-7(|plain| + sum|terms|)", ok,
-               timed(torch, lambda: K.warp_sim_backward(src, ref, hyp, rt, g_ip, g_sim), 10),
-               timed(torch, plain_bwd, 3),
-               None, bwd_bytes, D * h * w * (20 * C + 12), PEAK_FP32_FLOPS,
-               {"shape": [C, D, h, w], "d_src_max_abs_err": errs[0], "d_ref_max_abs_err": errs[1],
-                "d_src_rel_l2": rels[0], "d_ref_rel_l2": rels[1],
-                "explicit_plain_ms": timed(torch, lambda: K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip, g_sim),
-                                           3)})
-        del outs, ds_p, dr_p, g_ip
+    train_kernels(torch, dev, uniform, record, train_batch)
     protocol_kernels(torch, dev, uniform, record)
     torch.cuda.empty_cache()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return results
+
+
+def train_kernels(torch, dev, uniform, record, train_batch):
+    """K5, forward and backward, per batch element at the train point's stage
+    shapes: source and reference share the stage resolution; stage 1 sweeps
+    planes, stages 2 and 3 per-pixel windows (ratios 2 and 1); then the
+    ground-truth warps at D = 1 (rows tagged ``"point": "gt"``). Each row
+    also carries the profiler's device ms of one call (``device_ms``: the
+    backward's memset, kernel and finishing kernel) and of the main kernel
+    (``main_device_ms``). Emits K5's launch plan at these shapes and at
+    route R3's (``k5_plan``)."""
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+    from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform
+    from cds_mvsnet_tpu_torch.ops.kernels import warp_vjp
+
+    interval = 480.0 / (D_FULL - 1)
+    th, tw = TRAIN_H // 2, TRAIN_W // 2  # refinement: the cascade runs at half resolution
+    plans = []
+    card_plan = getattr(warp_vjp, "card_plan", None)  # absent in earlier commits' packages
+    for point in ("sweep", "gt"):
+        for s, (C, D) in enumerate(zip((32, 16, 8), NDEPTHS), start=1):
+            scale = 2 ** (3 - s)
+            h, w = th // scale, tw // scale
+            cams = train_batch["proj_matrices"][f"stage{s}"]
+            rot, trans = relative_warp_transform(cams[:1, 0], cams[:1, 1])
+            rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+            if point == "gt":
+                D, hyp = 1, uniform((1, h, w), 560.0, 640.0, torch.float32)
+            elif s == 1:
+                hyp = torch.linspace(425.0, 905.0, D, device=dev).contiguous()
+            else:
+                centre = uniform((h, w), 560.0, 640.0, torch.float32)
+                steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
+                hyp = (centre[None] + steps[:, None, None] * (4.0 / scale) * interval).contiguous()
+            tag = {} if point == "sweep" else {"point": "gt"}
+            src, ref = uniform((h, w, C)), uniform((C, h, w))
+            ip_k, sim_k = K.warp_sim(src, ref, hyp, rt)
+            torch.cuda.synchronize()
+            ip_p, sim_p = K.warp_sim_plain(src, ref, hyp, rt)
+            # K1's tolerance for in_prod; sim sums C products of the same bf16
+            # values, a warped value may sit one bf16 ulp away
+            d_ip = (ip_k.float() - ip_p.float()).abs()
+            d_sim = (sim_k - sim_p).abs()
+            ok = (bool((d_ip <= 2 ** -7 * ip_p.float().abs() + 2 ** -8).all())
+                  and bool((d_sim <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all()))
+            io_bytes = (src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + ip_k.numel() * 2
+                        + sim_k.numel() * 4)
+            fwd = lambda: K.warp_sim(src, ref, hyp, rt)
+            record("warp_sim", s, max(float(d_ip.max()), float(d_sim.max())),
+                   "in_prod |d| <= 2^-7|plain| + 2^-8; sim |d| <= 2^-7 sum_C|in_prod| + 1e-5", ok,
+                   timed(torch, fwd, 10), timed(torch, lambda: K.warp_sim_plain(src, ref, hyp, rt), 3),
+                   None, io_bytes, D * h * w * (11 * C + 12), PEAK_FP32_FLOPS,
+                   {"shape": [C, D, h, w], "in_prod_max_abs_err": float(d_ip.max()),
+                    "sim_max_abs_err": float(d_sim.max()), "in_prod_mismatches": int((d_ip != 0).sum()),
+                    "device_ms": call_device_ms(torch, fwd),
+                    "main_device_ms": kernel_device_ms(torch, fwd, "void warp_kernel"), **tag})
+            del ip_k, ip_p, d_ip
+
+            # the backward against autograd of the plain forward (the gate, with
+            # the bf16 roundings autograd adds inside its partial sums) and
+            # against the explicit plain backward (fp32 sums, one rounding)
+            g_ip = uniform((C, D, h, w))
+            g_sim = uniform((D, h, w), dtype=torch.float32)
+            ds_k, dr_k = K.warp_sim_backward(src, ref, hyp, rt, g_ip, g_sim)
+            torch.cuda.synchronize()
+            src_g, ref_g = src.clone().requires_grad_(), ref.clone().requires_grad_()
+            outs = K.warp_sim_plain(src_g, ref_g, hyp, rt)
+            plain_bwd = lambda: torch.autograd.grad(outs, (src_g, ref_g), (g_ip, g_sim), retain_graph=True)
+            ds_p, dr_p = plain_bwd()
+            ds_e, dr_e = K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip, g_sim)
+            # the plain backward on |inputs| sums |terms| behind each element
+            abs_terms = K.warp_sim_backward_plain(src.abs(), ref.abs(), hyp, rt, g_ip.abs(), g_sim.abs())
+            errs, rels, ok = [], [], True
+            for got, want, explicit, s_abs in zip((ds_k, dr_k), (ds_p, dr_p), (ds_e, dr_e), abs_terms):
+                d = (got.float() - want.float()).abs()
+                errs.append(float(d.max()))
+                rels.append(float((got.float() - want.float()).norm() / want.float().norm()))
+                ok &= bool((d <= 2 ** -6 * (want.float().abs() + s_abs.float()) + 1e-6).all()) and rels[-1] <= 1e-2
+                d_e = (got.float() - explicit.float()).abs()
+                ok &= bool((d_e <= 2 ** -7 * (explicit.float().abs() + s_abs.float()) + 1e-6).all())
+            bwd_bytes = (src.numel() * 2 + ref.numel() * 2 + hyp.numel() * 4 + 48 + g_ip.numel() * 2
+                         + g_sim.numel() * 4 + ds_k.numel() * 2 + dr_k.numel() * 2)
+            bwd = lambda: K.warp_sim_backward(src, ref, hyp, rt, g_ip, g_sim)
+            record("warp_sim_backward", s, max(errs),
+                   "vs autograd of the plain forward: |d| <= 2^-6(|plain| + sum|terms|) and rel L2 <= 1e-2; "
+                   "vs the explicit plain backward: |d| <= 2^-7(|plain| + sum|terms|)", ok,
+                   timed(torch, bwd, 10), timed(torch, plain_bwd, 3),
+                   None, bwd_bytes, D * h * w * (20 * C + 12), PEAK_FP32_FLOPS,
+                   {"shape": [C, D, h, w], "d_src_max_abs_err": errs[0], "d_ref_max_abs_err": errs[1],
+                    "d_src_rel_l2": rels[0], "d_ref_rel_l2": rels[1],
+                    "explicit_plain_ms": timed(torch, lambda: K.warp_sim_backward_plain(src, ref, hyp, rt, g_ip,
+                                                                                        g_sim), 3),
+                    "device_ms": call_device_ms(torch, bwd),
+                    "main_device_ms": kernel_device_ms(torch, bwd, "void warp_sim_backward_kernel"), **tag})
+            del outs, ds_p, dr_p, g_ip
+            if card_plan is not None:
+                for kernel in ("forward", "backward"):
+                    plans.append({"point": point, "stage": s, "kernel": kernel, "shape": [C, D, h, w],
+                                  **card_plan(kernel, C, D, h, w)})
+    if card_plan is not None:
+        for s, (C, D, h, w) in enumerate(stage_shapes(), start=1):  # route R3 (v7m) runs the forward
+            plans.append({"point": "r3", "stage": s, "kernel": "forward", "shape": [C, D, h, w],
+                          **card_plan("forward", C, D, h, w)})
+        emit({"phase": "k5_plan", "plans": plans})
 
 
 def cascade_kernels(torch, dev, uniform, record, s, shape, hyp, rt):
@@ -1033,6 +1073,16 @@ def kernel_device_ms(torch, fn, symbol: str, reps: int = 20) -> float:
     such kernel ran."""
     prof = device_profile(torch, lambda: [fn() for _ in range(reps)], top=5)
     return next((t["ms"] / t["calls"] for t in prof["top"] if symbol in t["name"]), None)
+
+
+def call_device_ms(torch, fn, reps: int = 20, profiles: int = 3) -> float:
+    """Device ms of one call of ``fn`` under ``torch.profiler``: every kernel
+    and memset it runs, over ``reps`` calls; the median of ``profiles``
+    profiles (one of them once missed most of a call's kernels)."""
+    totals = [device_profile(torch, lambda: [fn() for _ in range(reps)], top=1)["device_ms"]
+              for _ in range(profiles)]
+    totals = sorted(t for t in totals if isinstance(t, float))  # "not measured" where no device time showed
+    return totals[len(totals) // 2] / reps if totals else None
 
 
 SGEMM = "precomputed_convolve_sgemm"  # the largest cuDNN kernel of a request (PERF.md)
@@ -1730,11 +1780,13 @@ def main() -> int:
     kernels = []
     for name, source_replaces in KERNEL_INFO.items():
         source, replaces = source_replaces
-        rows = [r for r in results[name] if "point" not in r]  # the main path's shapes
+        # the main path's shapes; K5's step also runs the GT warps at D=1
+        points = {None, "gt"} if name in TRAIN_KERNEL_NAMES else {None}
+        rows = [r for r in results[name] if r.get("point") in points]
         # per-request totals at the serve shapes: K1 runs V-1 times per
         # stage; per-map totals at the protocol point: K9 runs V-1 times per
-        # stage; per-step totals of the sweeps at the train shapes: K5 runs
-        # B·(V-1) times per stage (the GT warps at D=1 are left out)
+        # stage; per-step totals at the train shapes: K5 runs B·(V-1) times
+        # per stage for the sweep and as often for the GT warp
         mult = {"warp_entropy": V - 1, "warp_gather": V - 1, "warp_sim": TRAIN_B * (V - 1),
                 "warp_sim_backward": TRAIN_B * (V - 1), "warp_sim_coords": V - 1}.get(name, 1)
         lib = [r["library_ms"] for r in rows]
@@ -1749,11 +1801,11 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib) * mult,
             "per": ("step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES
                     else "probe run" if name in PROBE_NAMES else "request"),
-            "per_stage": [{k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                                             "k2_plus_k7_ms", "device_ms") if k in r}
+            "per_stage": [{k: r[k] for k in ("point", "stage", "ms", "plain_ms", "library_ms", "bound_ms",
+                                             "max_abs_err", "k2_plus_k7_ms", "device_ms", "main_device_ms") if k in r}
                           for r in rows],
         })
-        for point in sorted({r["point"] for r in results[name] if "point" in r}):
+        for point in sorted({r.get("point") for r in results[name]} - points):
             kernels[-1][f"{point}_per_stage"] = [
                 {k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "device_ms")
                  if k in r}

@@ -365,6 +365,109 @@ def test_fused_warp_train_gradients_match_plain_autograd(gen, C):
         assert float((got - want).norm() / want.norm()) <= 1e-2
 
 
+def backward_within_tolerance(src, ref, depth, rt, g_ip, g_sim, d_src, d_ref) -> bool:
+    """K5's backward against the plain one, as in
+    test_warp_sim_backward_matches_plain."""
+    want = K.warp_sim_backward_plain(src, ref, depth, rt, g_ip, g_sim)
+    scale = K.warp_sim_backward_plain(src.abs(), ref.abs(), depth, rt, g_ip.abs(), g_sim.abs())
+    return all(bool(((got.float() - w.float()).abs() <= 2 ** -7 * (w.float().abs() + s.float()) + 1e-6).all())
+               for got, w, s in zip((d_src, d_ref), want, scale))
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("D", [7, 1])
+def test_warp_sim_in_prod_equals_plain(gen, C, per_pixel, D):
+    """K5's forward projects, weights, gathers and rounds op by op as the
+    plain version: in_prod bit for bit, at a sweep and at the train step's
+    one-plane GT warp."""
+    src, ref, depth, rt = warp_rig(gen, C, per_pixel, D)
+    ip, sim = K.warp_sim(src, ref, depth, rt)
+    torch.cuda.synchronize()
+    ip_p, sim_p = K.warp_sim_plain(src, ref, depth, rt)
+    assert torch.equal(ip, ip_p)
+    assert bool(((sim - sim_p).abs() <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all())
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_warp_sim_backward_d_ref_is_deterministic(gen, C, per_pixel):
+    """d_ref sums each plane chunk in registers and the chunks in order, with
+    no atomics: two runs give the same bits."""
+    src, ref, depth, rt = warp_rig(gen, C, per_pixel, D=40)
+    D, (_, h, w) = depth.shape[0], ref.shape
+    g_ip, g_sim = uniform(gen, (C, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
+    first = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[1]
+    second = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# (h, w, D): hw no multiple of a tile's pixels and not of 8 (2-byte rows),
+# below a tile, one plane; at 61x83, 64x80 and 29x131 several planes a chunk
+# with a ragged last chunk (ops/kernels/warp_vjp.py::launch_plan)
+K5_RAGGED = [(19, 37, 13), (3, 7, 1), (5, 288, 9), (61, 83, 50), (64, 80, 50), (29, 131, 100)]
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("h,w,D", K5_RAGGED)
+def test_warp_sim_tiles_and_chunks(gen, C, per_pixel, h, w, D):
+    """K5 over ragged pixel tiles and plane chunks, the source larger than
+    the reference: the forward bit for bit, the backward within the
+    tolerance of test_warp_sim_backward_matches_plain and d_ref the same in
+    two runs."""
+    H, W = h + 5, w + 9
+    src, ref = uniform(gen, (H, W, C)), uniform(gen, (C, h, w))
+    rt = torch.tensor(RT, device="cuda")
+    depth = torch.linspace(2.0, 40.0, D, device="cuda")
+    if per_pixel:
+        depth = (depth[:, None, None] * uniform(gen, (1, h, w), 0.8, 1.2, torch.float32)).contiguous()
+    ip, sim = K.warp_sim(src, ref, depth, rt)
+    torch.cuda.synchronize()
+    ip_p, sim_p = K.warp_sim_plain(src, ref, depth, rt)
+    assert torch.equal(ip, ip_p)
+    assert bool(((sim - sim_p).abs() <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all())
+    g_ip, g_sim = uniform(gen, (C, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
+    d_src, d_ref = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)
+    again = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[1]
+    torch.cuda.synchronize()
+    assert backward_within_tolerance(src, ref, depth, rt, g_ip, g_sim, d_src, d_ref)
+    assert torch.equal(d_ref, again)
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("D", [1, 5])
+def test_warp_sim_backward_wide_footprint(gen, C, D):
+    """A homography that magnifies 6x: neighbouring pixels' corner cells sit
+    6 source pixels apart, so no lane hands its corners to the pixel on its
+    right (csrc/warp_vjp.cu), and most of the source gets no gradient;
+    within the same tolerance."""
+    h, w = 19, 37
+    src, ref = uniform(gen, (6 * h + 2, 6 * w + 2, C)), uniform(gen, (C, h, w))
+    rt = torch.tensor([6.0, 0.02, 0.5, -0.01, 6.0, 0.5, 0.0, 0.0, 1.0, 0.3, -0.2, 0.0], device="cuda")
+    depth = torch.linspace(2.0, 40.0, D, device="cuda")
+    g_ip, g_sim = uniform(gen, (C, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
+    d_src, d_ref = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)
+    torch.cuda.synchronize()
+    assert backward_within_tolerance(src, ref, depth, rt, g_ip, g_sim, d_src, d_ref)
+    assert int((d_src != 0).sum()) > C * h * w  # the corners reached the source
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_warp_sim_plans_match_launchers(gen, C):
+    """The launchers' plans on the card are ``launch_plan``'s."""
+    from cds_mvsnet_tpu_torch.ops.kernels.warp_vjp import card_plan, launch_plan
+
+    for D, h, w in [(48, 64, 80), (1, 64, 80), (48, 216, 288), (50, 61, 83), (7, 3, 7)]:
+        for kernel in ("forward", "backward"):
+            plan, card = launch_plan(C, D, h, w, kernel), card_plan(kernel, C, D, h, w)
+            keys = ("lanes", "pixels", "chunk", "chunks", "blocks", "shared_bytes")
+            assert {k: card[k] for k in keys} == {k: plan[k] for k in keys}
+            assert card.get("scratch_bytes", 0) == plan["scratch_bytes"]
+            assert card["blocks_per_sm"] >= 1 and card["registers"] > 0
+
+
 def gather_rig(gen, C, dtype, D=5, h=19, w=37):
     """K9's inputs: a source smaller than the output grid in one axis and
     larger in the other, coordinates that leave the image, the ``-1e6``
