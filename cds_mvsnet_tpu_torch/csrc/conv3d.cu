@@ -5,8 +5,9 @@
 // K2 on a bf16 volume runs conv3d_mma_kernel: the tensor-core implicit GEMM
 // of conv3d_mma.cuh, which K6's conv0 shares. K2 on an fp32 volume (the fp32
 // route) runs conv3d_tf32_kernel, the same GEMM in 3xTF32 on
-// mma.sync.m16n8k8. The stride-2 K7 runs the direct body
-// conv3d_bn_relu_kernel.
+// mma.sync.m16n8k8. The stride-2 K7 runs conv3d_down_mma_kernel in bf16,
+// the GEMM of conv3d_mma.cuh at stride 2, and the direct body
+// conv3d_bn_relu_kernel in fp32, whose FMAs K6's conv1 repeats.
 #include "conv3d_mma.cuh"
 
 constexpr int TX = 32, TY = 8;
@@ -203,6 +204,328 @@ static int launch_mma(const void* vol, const void* wt, const void* bias, void* o
       static_cast<const bf16*>(vol), static_cast<const float*>(wt), static_cast<const float*>(bias),
       static_cast<bf16*>(out), C, D, h, w, tiles_x, tiles_y, n_tiles);
   return (int)cudaGetLastError();
+}
+
+// K7 in bf16: conv3d_mma.cuh's implicit GEMM at stride 2 (mma_step_s2: the
+// same hi/lo MMAs and order as K2's), over output tiles of MZ x MY x MX
+// voxels, each row of 16 along x one M-tile, MT M-tiles a warp. A block
+// stays resident and walks the tiles blockIdx.x, +gridDim.x, ...
+//
+// The input box of a tile and chunk of 8 channels: 2·MZ+1 planes and 2·MY+1
+// rows from 2·z0-1 and 2·y0-1, x from 2·x0-2 over 2·MX+2 voxels; zeros
+// outside the volume. It is stored channel-innermost, 16 bytes a voxel,
+// split by x parity: a row is [parity][x/2][8], PX = MX+1 voxels a parity,
+// then 16 bytes of padding. Output x (tile-local ox) reads box x 2·ox+kx+1:
+// parity 1 at ox for kx = 0, parity 0 at ox+1 for kx = 1, parity 1 at ox+1
+// for kx = 2; so the 8 rows of an ldmatrix (8 consecutive ox) are 8
+// consecutive 16-byte rows of one parity sub-row and meet no bank twice,
+// where the stride-1 layout would put them 32 bytes apart.
+//
+// Loads: w a multiple of 8 (every route shape) and a 16-byte aligned
+// volume take 16-byte loads, 8 voxels along x of one channel plane; a task
+// is one row and one such vector of all 8 channels, transposed 8 x 8 in
+// registers (byte_perm) into 8 voxel rows, or the row's left voxel pair
+// (four-byte loads; only x = 2·x0-1 is stored). Otherwise two-byte loads,
+// one a voxel and channel. A warp's 32 vector tasks are 4 rows x the 8
+// vectors of a row (whole 128-byte lines), and a store phase's 8 lanes 4
+// rows x 2 neighbouring vectors: with a row of an odd number of 16-byte
+// slots their stores meet no bank twice. The box is double buffered: a
+// thread's tasks of the next (tile, chunk) are loaded one at a time, each
+// before a share of the current MMAs and stored into the other buffer
+// after them (32 registers in flight, not a whole box's), one barrier a
+// step. A tile's outputs leave through the box just read (a second
+// barrier): a warp writes its two M-tiles as [16 channels][32 x] rows and
+// stores them as 16-byte vectors, 64 contiguous bytes a channel, where the
+// fragment layout alone would store 16-byte pieces (5 % of the time).
+namespace k7 {
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+struct T {
+  static constexpr int MZ = 2, MY = 4, MX = 32;
+  static constexpr int HZ = 2 * MZ + 1, HY = 2 * MY + 1, ROWS = HZ * HY;
+  static constexpr int PX = MX + 1;                 // voxels of a parity sub-row
+  static constexpr int RS = (2 * PX + 1) * 16;      // bytes a row: an odd number of 16-byte slots
+  static constexpr int HALO = ROWS * RS;            // bytes of one buffer
+  static constexpr int MTILES = MZ * MY * (MX / 16);
+  static constexpr int MT = MTILES / kWarps;        // M-tiles a warp
+  static constexpr int VECS = MX / 4;               // 16-byte vectors a row: x 2·x0 .. 2·x0+2·MX-1
+  static constexpr int NVEC = (ROWS + 3) / 4 * 32;  // vector task slots, 4 rows a warp; then ROWS left pairs
+  static constexpr int NTASK = (NVEC + ROWS + kThreads - 1) / kThreads;
+  static_assert(MTILES % kWarps == 0 && VECS == 8, "whole M-tiles a warp, 8 vectors a row");
+  static_assert(MT <= 2, "a warp's M-tiles share z and y, so the inside ones come first");
+  static_assert(conv_mma::KSTEPS % NTASK == 0, "the K-steps split evenly between a thread's tasks");
+};
+constexpr int kMaxSmem = 227 * 1024;
+
+__device__ __forceinline__ void tile_origin(int tile, int tiles_x, int tiles_y, int& z0, int& y0, int& x0) {
+  x0 = (tile % tiles_x) * T::MX;
+  y0 = ((tile / tiles_x) % tiles_y) * T::MY;
+  z0 = (tile / (tiles_x * tiles_y)) * T::MZ;
+}
+
+// Word i of a 16-byte vector.
+__device__ __forceinline__ uint32_t word(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+// Channel pairs of voxel `odd` (0 or 1) of eight two-voxel words, one a
+// channel: a 16-byte voxel row.
+__device__ __forceinline__ uint4 voxel_row(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3, uint32_t c4,
+                                           uint32_t c5, uint32_t c6, uint32_t c7, bool odd) {
+  const uint32_t sel = odd ? 0x7632 : 0x5410;
+  return make_uint4(__byte_perm(c0, c1, sel), __byte_perm(c2, c3, sel), __byte_perm(c4, c5, sel),
+                    __byte_perm(c6, c7, sel));
+}
+
+// Two-byte loads of channels c0 .. c0+7 of n voxels from x, zeros outside
+// the volume, packed as 16-byte loads would give them (voxel pairs a word).
+__device__ __forceinline__ void load_scalar(uint4 (&q)[8], const bf16* __restrict__ vol, size_t plane, int c0,
+                                            size_t at, int x, int n, int w) {
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(vol) + (size_t)c0 * plane + at;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    uint32_t word[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < n && x + k >= 0 && x + k < w) word[k / 2] |= (uint32_t)__ldg(p + c * plane + k) << (16 * (k % 2));
+    q[c] = make_uint4(word[0], word[1], word[2], word[3]);
+  }
+}
+
+// Task slot v's row and first box x (a vector: 2 + 8·j; a left pair: 0);
+// false for a slot without a task.
+__device__ __forceinline__ bool task(int v, int& row, int& hx) {
+  if (v < T::NVEC) {
+    const int l = v % 32;
+    row = v / 32 * 4 + (l % 8) / 2;
+    hx = 2 + 8 * (2 * (l / 8) + l % 2);
+  } else {
+    row = v - T::NVEC;
+    hx = 0;
+  }
+  return row < T::ROWS;
+}
+
+// Task slot v of the chunk at channel c0 of the tile at output origin
+// (z0, y0, x0), into q (channel c's words in q[c]).
+__device__ __forceinline__ void load_task(uint4 (&q)[8], int v, const bf16* __restrict__ vol, size_t plane, int c0,
+                                          int z0, int y0, int x0, int D, int h, int w, bool vec) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) q[c] = make_uint4(0, 0, 0, 0);
+  int row, hx;
+  if (!task(v, row, hx)) return;
+  const int z = 2 * z0 - 1 + row / T::HY, y = 2 * y0 - 1 + row % T::HY, x = 2 * x0 - 2 + hx;
+  if (z < 0 || z >= D || y < 0 || y >= h) return;
+  const size_t at = ((size_t)z * h + y) * w + x;
+  if (!vec) {
+    load_scalar(q, vol, plane, c0, at, x, hx ? 8 : 2, w);
+  } else if (hx == 0) {  // the left pair: x even, so both voxels are in or out
+    if (x < 0) return;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(vol + (size_t)c0 * plane + at);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) q[c].x = __ldg(p + c * (plane / 2));
+  } else if (x < w) {  // x and w multiples of 8: the vector is in or out whole
+    const uint4* p = reinterpret_cast<const uint4*>(vol + (size_t)c0 * plane + at);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) q[c] = __ldg(p + c * (plane / 8));
+  }
+}
+
+// Task slot v's voxel rows into the box at `box`.
+__device__ __forceinline__ void store_task(char* box, const uint4 (&a)[8], int v) {
+  int row, hx;
+  if (!task(v, row, hx)) return;
+  char* r = box + row * T::RS;
+  if (hx == 0) {  // box x 1 (parity 1, slot 0); box x 0 is never read
+    *reinterpret_cast<uint4*>(r + T::PX * 16) =
+        voxel_row(a[0].x, a[1].x, a[2].x, a[3].x, a[4].x, a[5].x, a[6].x, a[7].x, true);
+    return;
+  }
+  const int slot = hx / 2;  // box x hx + k: parity k % 2, slot hx/2 + k/2
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    *reinterpret_cast<uint4*>(r + ((k % 2) * T::PX + slot + k / 2) * 16) =
+        voxel_row(word(a[0], k / 2), word(a[1], k / 2), word(a[2], k / 2), word(a[3], k / 2), word(a[4], k / 2),
+                  word(a[5], k / 2), word(a[6], k / 2), word(a[7], k / 2), k % 2);
+}
+}  // namespace k7
+
+// NT: output channels / 8.
+template <int NT>
+__global__ void __launch_bounds__(k7::kThreads, 2) conv3d_down_mma_kernel(
+    const bf16* __restrict__ vol,   // (C, D, h, w), C a multiple of 8
+    const float* __restrict__ wt,   // (8*NT, C, 3, 3, 3), eval BN folded in
+    const float* __restrict__ bias, // (8*NT,)
+    bf16* __restrict__ out,         // (8*NT, Do, ho, wo)
+    int C, int D, int h, int w, int tiles_x, int tiles_y, int n_tiles) {
+  using namespace conv_mma;
+  using k7::T;
+  extern __shared__ uint4 smem[];
+  const int nchunks = C / CH;
+  uint4* wfrag = smem;
+  char* box = reinterpret_cast<char*>(smem + nchunks * KSTEPS * NT * 32);  // two buffers of T::HALO bytes
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  stage_weights<NT>(wfrag, wt, C, tid, k7::kThreads);
+
+  // the warp's M-tiles m = warp*MT + j: output (m / (2*MY), (m/2) % MY,
+  // (m%2)*16) of the tile; row[j]: byte offset of this lane's ldmatrix row
+  // at tap (0, 0, parity 0), box plane 2·mz, row 2·my, slot ox
+  uint32_t row[T::MT];
+  int mz[T::MT], my[T::MT], mx[T::MT];
+#pragma unroll
+  for (int j = 0; j < T::MT; ++j) {
+    const int m = warp * T::MT + j;
+    mz[j] = m / (2 * T::MY), my[j] = (m / 2) % T::MY, mx[j] = (m % 2) * 16;
+    row[j] = (2 * mz[j] * T::HY + 2 * my[j]) * T::RS + (mx[j] + ldmatrix_row(lane)) * 16;
+  }
+  float bv[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[nt][e] = __ldg(bias + nt * 8 + 2 * (lane % 4) + e);
+  const int Do = (D - 1) / 2 + 1, ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
+  const size_t plane = (size_t)D * h * w, plane_o = (size_t)Do * ho * wo, hwo = (size_t)ho * wo;
+  const bool vec = w % 8 == 0 && (reinterpret_cast<uintptr_t>(vol) & 15) == 0;
+  const bool vec_out = wo % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+
+  int tile = blockIdx.x, chunk = 0, z0, y0, x0;
+  k7::tile_origin(tile, tiles_x, tiles_y, z0, y0, x0);
+#pragma unroll
+  for (int i = 0; i < T::NTASK; ++i) {
+    uint4 q[8];
+    k7::load_task(q, i * k7::kThreads + tid, vol, plane, 0, z0, y0, x0, D, h, w, vec);
+    k7::store_task(box, q, i * k7::kThreads + tid);
+  }
+  __syncthreads();  // the weights and the first box are staged
+  float acc[T::MT][NT][4];
+  zero(acc);
+  for (int cur = 0;; cur ^= 1) {
+    int next = tile, next_chunk = chunk + 1, nz = 0, ny = 0, nx = 0;
+    if (next_chunk == nchunks) next += gridDim.x, next_chunk = 0;
+    const bool more = next < n_tiles;
+    if (more) k7::tile_origin(next, tiles_x, tiles_y, nz, ny, nx);
+    // M-tiles of this warp inside the output: warp-uniform, the x-halves last
+    int valid = 0;
+#pragma unroll
+    for (int j = 0; j < T::MT; ++j) valid += z0 + mz[j] < Do && y0 + my[j] < ho && x0 + mx[j] < wo;
+    const uint32_t box_s = smem_addr(box + cur * T::HALO);
+    const uint4* wf = wfrag + chunk * KSTEPS * NT * 32;
+    char* next_box = box + (cur ^ 1) * T::HALO;
+#pragma unroll
+    for (int i = 0; i < T::NTASK; ++i) {  // task i of the next box in flight during a share of the K-steps
+      uint4 q[8];
+      if (more) k7::load_task(q, i * k7::kThreads + tid, vol, plane, next_chunk * CH, nz, ny, nx, D, h, w, vec);
+#ifndef CDS_K7_LOADS_ONLY  // tools/time_conv3d.py --loads-only: the loads and stores alone
+#pragma unroll
+      for (int s = i * KSTEPS / T::NTASK; s < (i + 1) * KSTEPS / T::NTASK; ++s)
+        mma_step_s2<T::MT, NT>(s, acc, box_s, row, wf, T::HY * T::RS, T::RS, T::PX * 16, lane, valid);
+#endif
+      if (more) k7::store_task(next_box, q, i * k7::kThreads + tid);
+    }
+    if (chunk == nchunks - 1) {
+      // the tile's outputs through this warp's 1280 bytes of the box just
+      // read: [16 channels][80-byte row of its 32 x], then 16-byte stores
+      // (the 16-byte padding of a row spreads a phase's lanes over the banks)
+      __syncthreads();  // every warp is done with this box
+      char* stage = box + cur * T::HALO + warp * (16 * 80);
+#pragma unroll
+      for (int j = 0; j < T::MT; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<bf16*>(stage + (nt * 8 + 2 * (lane % 4) + e) * 80 +
+                                       (mx[j] + lane / 4 + 8 * half) * 2) = finish(acc[j][nt][2 * half + e], bv[nt][e]);
+      __syncwarp();
+      const int z = z0 + mz[0], y = y0 + my[0];
+      if (z < Do && y < ho) {
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {  // 8·NT channels x 4 vectors: NT a lane
+          const int v = lane + 32 * k, ch = v / 4, x = x0 + 8 * (v % 4);
+          const uint4 q = *reinterpret_cast<const uint4*>(stage + ch * 80 + (v % 4) * 16);
+          bf16* dst = out + (size_t)ch * plane_o + (size_t)z * hwo + (size_t)y * wo + x;
+          if (vec_out && x + 8 <= wo) {
+            *reinterpret_cast<uint4*>(dst) = q;
+          } else {
+            const bf16* e8 = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+              if (x + t < wo) dst[t] = e8[t];
+          }
+        }
+      }
+      zero(acc);
+    }
+    if (!more) break;
+    __syncthreads();  // the next box is stored; every warp is done with this one
+    tile = next, chunk = next_chunk, z0 = nz, y0 = ny, x0 = nx;
+  }
+}
+
+template <int NT>
+static size_t down_smem(int C) {
+  return (size_t)(C / conv_mma::CH) * conv_mma::KSTEPS * NT * 32 * sizeof(uint4) + 2 * (size_t)k7::T::HALO;
+}
+
+// The card's resident blocks of conv3d_down_mma_kernel<NT> at C channels (0
+// if C is no multiple of 8, the shared memory does not fit or a query
+// fails); per_sm: an SM's.
+template <int NT>
+static int down_resident(int C, int& per_sm) {
+  constexpr int kMaxC = 64 * conv_mma::CH;
+  if (C % conv_mma::CH || C <= 0 || C > kMaxC || down_smem<NT>(C) > (size_t)k7::kMaxSmem) return 0;
+  static const cudaError_t opt_in =  // once per instantiation, not per launch
+      cudaFuncSetAttribute(conv3d_down_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, k7::kMaxSmem);
+  if (opt_in != cudaSuccess) return 0;
+  static int occupancy[64 + 1] = {};
+  const int limit = conv_mma::resident_grid(conv3d_down_mma_kernel<NT>, k7::kThreads, down_smem<NT>(C), C, occupancy);
+  per_sm = occupancy[C / conv_mma::CH];
+  return limit;
+}
+
+static void down_tiles(int D, int h, int w, int& tiles_x, int& tiles_y, int& n_tiles) {
+  using k7::T;
+  const int Do = (D - 1) / 2 + 1, ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
+  tiles_x = (wo + T::MX - 1) / T::MX, tiles_y = (ho + T::MY - 1) / T::MY;
+  n_tiles = tiles_x * tiles_y * ((Do + T::MZ - 1) / T::MZ);
+}
+
+template <int NT>
+static int launch_down_mma(const void* vol, const void* wt, const void* bias, void* out, int C, int D, int h, int w,
+                           void* stream) {
+  int per_sm = 0;
+  const int limit = down_resident<NT>(C, per_sm);
+  if (limit == 0) return (int)cudaErrorInvalidValue;
+  int tiles_x, tiles_y, n_tiles;
+  down_tiles(D, h, w, tiles_x, tiles_y, n_tiles);
+  if (D <= 0 || h <= 0 || w <= 0) return 0;
+  conv3d_down_mma_kernel<NT><<<n_tiles < limit ? n_tiles : limit, k7::kThreads, down_smem<NT>(C),
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(vol), static_cast<const float*>(wt), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), C, D, h, w, tiles_x, tiles_y, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// K7-bf16's launch plan at O output and C input channels and input D x h x
+// w, as conv3d_down_launch makes it: out = {tile z, y, x (output voxels),
+// tiles, blocks, registers a thread, resident blocks an SM, dynamic shared
+// bytes a block}.
+CDS_EXPORT int conv3d_down_plan(int O, int C, int D, int h, int w, int* out) {
+  if (O != 8 && O != 16) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaFuncAttributes attr;
+  const int limit = O == 8 ? down_resident<1>(C, per_sm) : down_resident<2>(C, per_sm);
+  if (limit == 0 ||
+      cudaFuncGetAttributes(&attr, O == 8 ? conv3d_down_mma_kernel<1> : conv3d_down_mma_kernel<2>) != cudaSuccess)
+    return (int)cudaErrorInvalidConfiguration;
+  int tiles_x, tiles_y, n_tiles;
+  down_tiles(D, h, w, tiles_x, tiles_y, n_tiles);
+  out[0] = k7::T::MZ; out[1] = k7::T::MY; out[2] = k7::T::MX;
+  out[3] = n_tiles; out[4] = n_tiles < limit ? n_tiles : limit;
+  out[5] = attr.numRegs; out[6] = per_sm;
+  out[7] = (int)(O == 8 ? down_smem<1>(C) : down_smem<2>(C));
+  return 0;
 }
 
 // K2 in fp32: the implicit GEMM (M = output voxels, N = O, K = 27·C) on
@@ -483,14 +806,14 @@ static int dispatch(const void* vol, const void* wt, const void* bias, void* out
     if constexpr (S == 1)  // K2 in bf16: the tensor-core body
       return O == 8 ? launch_mma<1>(vol, wt, bias, out, C, D, h, w, stream)
                     : launch_mma<2>(vol, wt, bias, out, C, D, h, w, stream);
-    else
-      return O == 8 ? launch<bf16, 8, S>(vol, wt, bias, out, C, D, h, w, stream)
-                    : launch<bf16, 16, S>(vol, wt, bias, out, C, D, h, w, stream);
+    else  // K7 in bf16: the same body at stride 2
+      return O == 8 ? launch_down_mma<1>(vol, wt, bias, out, C, D, h, w, stream)
+                    : launch_down_mma<2>(vol, wt, bias, out, C, D, h, w, stream);
   }
   if constexpr (S == 1)  // K2 in fp32: 3xTF32 on the tensor cores
     return O == 8 ? launch_tf32<1>(vol, wt, bias, out, C, D, h, w, stream)
                   : launch_tf32<2>(vol, wt, bias, out, C, D, h, w, stream);
-  else
+  else  // K7 in fp32: the direct body (K6's fp32 form runs the same FMAs)
     return O == 8 ? launch<float, 8, S>(vol, wt, bias, out, C, D, h, w, stream)
                   : launch<float, 16, S>(vol, wt, bias, out, C, D, h, w, stream);
 }

@@ -4,9 +4,10 @@
 // version and design note: ops/kernels/conv3d_fused.py.
 //
 // bf16: conv3d_fused_mma_kernel, conv0 on conv3d_mma.cuh's tensor-core body
-// (K2's, so out0 equals K2's output bit for bit), conv1 with K7's fp32 FMAs
-// in K7's order (so out1 equals K7 on out0 bit for bit). fp32:
-// conv3d_fused_kernel, the direct body of K2's and K7's fp32 forms.
+// (K2's, so out0 equals K2's output bit for bit), conv1 with the fp32 FMAs
+// of K7's fp32 form in its order (so out1 equals K7's fp32 form on
+// out0.float(), rounded to bf16, bit for bit). fp32: conv3d_fused_kernel,
+// the direct body of K2's and K7's fp32 forms.
 #include "conv3d_mma.cuh"
 
 constexpr int O0 = 8, O1 = 16;
@@ -287,7 +288,7 @@ __global__ void __launch_bounds__(k6::kThreads, 2) conv3d_fused_mma_kernel(
       *reinterpret_cast<__nv_bfloat162*>(out0 + o * plane + (size_t)d * hw + (size_t)y * w + x) = pair;
     }
 
-    // Phase 2: conv1 from the shared tile with K7's FMAs in K7's order; a
+    // Phase 2: conv1 from the shared tile with K7-fp32's FMAs in its order; a
     // thread takes one output and 8 of its 16 channels. Output (d1, y1, x1)
     // reads conv0 at 2*d1-1 .. 2*d1+1, region-local 2*td .. 2*td+2.
     const int k = tid % (TD * TY * TX), oh = tid / (TD * TY * TX);

@@ -1,7 +1,8 @@
 // The tensor-core body of a 3x3x3 conv (pad 1, stride 1) on a bf16 volume,
 // shared by K2's bf16 form (conv3d.cu) and K6's conv0 (conv3d_fused.cu), so
 // that the two compute every output voxel with the same operations in the
-// same order: K6's out0 equals K2's output bit for bit.
+// same order: K6's out0 equals K2's output bit for bit. K7's bf16 form
+// (conv3d.cu) runs the same arithmetic at stride 2 (mma_step_s2).
 //
 // Implicit GEMM: M = output voxels, N = O (8 or 16: one or two 8-wide
 // n-tiles), K = 27·C, on mma.sync.m16n8k16 (bf16 in, fp32 accumulators).
@@ -221,6 +222,38 @@ __device__ __forceinline__ void mma_step(int s, float (&acc)[MT][NT][4], uint32_
         mma_bf16(acc[mt][nt], a, b[nt].z, b[nt].w);
       }
     }
+  }
+}
+
+// K7's K-step (stride 2): mma_step's wide form, the hi MMAs of the M-tiles,
+// then their lo MMAs, on a halo stored by x parity (conv3d.cu, k7): the x
+// tap kx of a row sits at parity 1 of its slot (kx = 0, px16 bytes on),
+// parity 0 one slot on (kx = 1, 16 bytes) or parity 1 one slot on (kx = 2),
+// not at 16·kx. The sums run as mma_step's: every voxel's step by step, hi
+// then lo.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_step_s2(int s, float (&acc)[MT][NT][4], uint32_t halo, const uint32_t (&row)[MT],
+                                            const uint4* wfrag, int sz, int sy, int px16, int lane, int valid) {
+  const int t0 = 2 * s, t1 = 2 * s + 1 < TAPS ? 2 * s + 1 : 0;  // the 28th tap reads tap 0 at zero weight
+  const int tap = lane >= 16 ? t1 : t0;                          // lanes 16-31 address the second tap
+  const int kx = tap % 3;
+  const uint32_t toff = (tap / 9) * sz + ((tap / 3) % 3) * sy + (kx == 1 ? 16 : px16 + (kx == 2 ? 16 : 0));
+  uint4 b[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) b[nt] = wfrag[(s * NT + nt) * 32 + lane];
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt >= valid) break;
+    ldmatrix_x4(a[mt], halo + row[mt] + toff);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt].x, b[nt].y);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt >= valid) break;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt].z, b[nt].w);
   }
 }
 

@@ -57,10 +57,32 @@ with zeros. Bound: the three TF32 products at the dense TF32 rate, about
 volume to bf16 for its matrix unit (``conv3d.py:186-187,198``); the port's
 fp32 route keeps fp32 accuracy.
 
-K7 keeps the direct body (``conv3d_bn_relu_kernel``): one thread per output
-voxel computes all O outputs with fp32 FMAs, the folded weights in shared
-memory in ``[c][tap][o]`` order, the input reuse left to L1. K7 beats
-cuDNN's stride-2 conv (``PERF.md``).
+K7 in bf16 (``conv3d_down_mma_kernel``) is the same implicit GEMM at
+stride 2, with K2's arithmetic (``mma_step_s2`` in ``csrc/conv3d_mma.cuh``:
+the hi and lo MMAs of every K-step, in K2's order), so it keeps one bf16
+ulp of the fp32 conv. Bound: memory, 60 / 159 / 159 MB at stages 1/2/3 of
+the serve point (18 / 48 / 48 µs); its hi and lo MMAs come to 5 / 14 / 14
+GFLOP. A block of 8 warps owns 2x4x32 output voxels at a time (16 M-tiles
+of 16 along x, two a warp), stays resident and walks the tiles. The input
+box of a tile and chunk (5x9 rows of 66 voxels, x from two before 2·x0) is
+stored channel-innermost, 16 bytes a voxel, split by x parity
+(``[row][parity][x/2][8]``, each row padded to an odd number of 16-byte
+slots): the 8 rows of an ``ldmatrix`` at stride 2 (input x 2·ox + kx - 1
+for 8 consecutive ox) are then 8 consecutive rows of one parity and meet
+no bank twice. Where w is a multiple of 8 (every route shape) it is loaded
+in 16-byte loads, 8 voxels along x of one channel plane, transposed 8 x 8
+in registers and stored as voxel rows; otherwise in two-byte loads. The box
+is double-buffered in shared memory: the next (tile, chunk)'s loads are
+issued before the current MMAs, one barrier a step. A tile's outputs leave
+through the box just read, a warp's 32 x of each channel as 16-byte
+stores. C must be a multiple of 8. :func:`launch_plan` mirrors its tiles
+and box.
+
+K7 in fp32 keeps the direct body (``conv3d_bn_relu_kernel``): one thread
+per output voxel computes all O outputs with fp32 FMAs in ``(c, kd, ky,
+kx)`` order, the folded weights in shared memory, the input reuse left to
+L1. No path runs it; K6's conv1 runs the same FMAs on its bf16 conv0, so
+K6's out1 equals this form on ``out0.float()``, rounded to bf16.
 """
 
 from __future__ import annotations
@@ -71,9 +93,23 @@ import torch.nn.functional as F
 from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 
-__all__ = ["conv3d_bn_relu", "conv3d_bn_relu_plain", "conv3d_down", "conv3d_down_plain", "fold_bn_into_conv3d"]
+__all__ = ["conv3d_bn_relu", "conv3d_bn_relu_plain", "conv3d_down", "conv3d_down_plain", "fold_bn_into_conv3d",
+           "launch_plan", "box_offset", "row_offset", "tap_offset", "load_task"]
 
 OUT_CHANNELS = (8, 16)
+
+# K7 in bf16 (csrc/conv3d.cu, namespace k7): a block's output tile (z, y, x)
+# and threads; the input box's rows (2·MZ+1 planes of 2·MY+1 rows), the
+# voxels of a parity sub-row (box x from 2·x0-2 over 2·MX+2) and a row's
+# bytes (both parities, padded to an odd number of 16-byte slots)
+K7_TILE = (2, 4, 32)
+K7_THREADS = 256
+K7_HY = 2 * K7_TILE[1] + 1
+K7_ROWS = (2 * K7_TILE[0] + 1) * K7_HY
+K7_PX = K7_TILE[2] + 1
+K7_ROW_BYTES = (2 * K7_PX + 1) * 16
+K7_VECTOR_SLOTS = -(-K7_ROWS // 4) * 32  # a warp's 32 vector tasks: 4 rows x 8 vectors
+K7_OUT_STAGE = 16 * 80  # a warp's outputs on their way out: 16 channels x (32 x, 16 bytes of padding)
 
 
 def fold_bn_into_conv3d(weight, bn_weight, bn_bias, running_mean, running_var, eps: float = 1e-5):
@@ -98,8 +134,8 @@ def conv3d_down_plain(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> to
 
 def check_conv(name: str, vol, w, b, out_channels=OUT_CHANNELS, tensor_cores: bool = False) -> None:
     """The argument contract of K2, K7 and each of K6's two convs;
-    ``tensor_cores``: the conv runs on the tensor-core body in bf16 (K2, K6's
-    conv0), which takes C in chunks of 8 channels."""
+    ``tensor_cores``: the conv runs on the tensor-core body in bf16 (K2, K7,
+    K6's conv0), which takes C in chunks of 8 channels."""
     require(vol.ndim == 4, f"{name}: vol {tuple(vol.shape)}")
     C = vol.shape[0]
     O = w.shape[0] if w.ndim == 5 else -1
@@ -112,6 +148,66 @@ def check_conv(name: str, vol, w, b, out_channels=OUT_CHANNELS, tensor_cores: bo
     require(all(t.is_contiguous() for t in (vol, w, b)), f"{name}: inputs must be contiguous")
     if tensor_cores and vol.dtype == torch.bfloat16:
         require(C % 8 == 0, f"{name}: bf16 takes C in multiples of 8, got C={C}")
+
+
+def launch_plan(C: int, D: int, h: int, w: int, O: int = 16) -> dict:
+    """K7-bf16's plan for an input ``(C, D, h, w)`` as ``csrc/conv3d.cu``
+    (``k7``, ``conv3d_down_plan``) makes it: the output ``tile`` (z, y, x),
+    the output shape ``out``, the tiles along each axis and in all, the
+    M-tiles of 16 voxels a warp, the input box's ``box_rows``, ``row_bytes``
+    and one buffer's ``box_bytes``, the ``shared_bytes`` of the weight
+    fragments and two buffers, the load task slots (``tasks``, see
+    :func:`load_task`) and a thread's share, and whether the loads are
+    16-byte (``vector_loads``: w a multiple of 8)."""
+    require(O in OUT_CHANNELS and C > 0 and C % 8 == 0, f"launch_plan: C={C}, O={O}")
+    require(min(D, h, w) >= 1, f"launch_plan: D, h, w = {D}, {h}, {w}")
+    MZ, MY, MX = K7_TILE
+    out = ((D - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    tiles = tuple(-(-n // t) for n, t in zip(out, K7_TILE))
+    tasks = K7_VECTOR_SLOTS + K7_ROWS
+    weights = C // 8 * 14 * (O // 8) * 32 * 16  # 14 K-steps of 32 lanes' hi/lo fragments an n-tile and chunk
+    return {"tile": K7_TILE, "out": out, "tiles_zyx": tiles, "tiles": tiles[0] * tiles[1] * tiles[2],
+            "m_tiles_per_warp": MZ * MY * (MX // 16) // (K7_THREADS // 32), "box_rows": K7_ROWS,
+            "row_bytes": K7_ROW_BYTES, "box_bytes": K7_ROWS * K7_ROW_BYTES,
+            "shared_bytes": weights + 2 * K7_ROWS * K7_ROW_BYTES, "tasks": tasks,
+            "tasks_per_thread": -(-tasks // K7_THREADS), "vector_loads": w % 8 == 0}
+
+
+def box_offset(row: int, bx: int) -> int:
+    """Byte offset in K7's box of the voxel at box row ``row`` (plane
+    ``row // (2·MY+1)``, row ``row % (2·MY+1)``) and box x ``bx`` (input x
+    ``2·x0 - 2 + bx``): parity ``bx % 2``, slot ``bx // 2``."""
+    return row * K7_ROW_BYTES + ((bx % 2) * K7_PX + bx // 2) * 16
+
+
+def row_offset(m: int, lane: int) -> int:
+    """Byte offset of lane ``lane``'s ldmatrix row of M-tile ``m`` at tap (0,
+    0, parity 0): box plane 2·mz, row 2·my, slot ox."""
+    MY = K7_TILE[1]
+    mz, my, mx = m // (2 * MY), (m // 2) % MY, (m % 2) * 16
+    ox = mx + (lane & 7) + ((lane >> 3) & 1) * 8
+    return (2 * mz * K7_HY + 2 * my) * K7_ROW_BYTES + ox * 16
+
+
+def tap_offset(kd: int, ky: int, kx: int) -> int:
+    """The byte offset a tap adds to :func:`row_offset`: kx = 0 parity 1 at
+    the row's slot, kx = 1 parity 0 one slot on, kx = 2 parity 1 one slot
+    on."""
+    return kd * K7_HY * K7_ROW_BYTES + ky * K7_ROW_BYTES + (K7_PX * 16, 16, K7_PX * 16 + 16)[kx]
+
+
+def load_task(v: int) -> tuple[int, int] | None:
+    """Load task slot ``v``'s box row and first box x: a 16-byte vector of
+    all 8 channels (box x 2 + 8·j, the 8 voxels from it), then a row's left
+    pair (box x 0, of which box x 1 is stored); None for a slot without a
+    task. A warp's 32 vector slots are 4 rows x 8 vectors, a store phase's
+    8 lanes 4 rows x 2 neighbouring vectors."""
+    if v < K7_VECTOR_SLOTS:
+        lane = v % 32
+        row, hx = v // 32 * 4 + lane % 8 // 2, 2 + 8 * (2 * (lane // 8) + lane % 2)
+    else:
+        row, hx = v - K7_VECTOR_SLOTS, 0
+    return (row, hx) if row < K7_ROWS else None
 
 
 def _launch(name: str, fn_name: str, vol, w, b, stride: int) -> torch.Tensor:
@@ -140,8 +236,8 @@ def conv3d_bn_relu(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
 
 def conv3d_down(vol: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K7: :func:`conv3d_bn_relu` at stride 2, ``(C, D, h, w) -> (O, D/2,
-    h/2, w/2)``; D, h and w even."""
-    check_conv("conv3d_down", vol, w, b)
+    h/2, w/2)``; D, h and w even; in bf16 C is a multiple of 8."""
+    check_conv("conv3d_down", vol, w, b, tensor_cores=True)
     require(all(n % 2 == 0 for n in vol.shape[1:]), f"conv3d_down: D, h, w {tuple(vol.shape[1:])} must be even")
     if not on_card("conv3d_down", vol, w, b):
         return conv3d_down_plain(vol, w, b)

@@ -35,9 +35,11 @@ bias, ReLU and rounding to bf16, goes to a shared conv0 tile, 0 outside the
 volume (conv1's zero padding at index -1; the high side is never read by a
 valid output, as D, h and w are even), and the 4x8x32 voxels the tile owns
 go to out0 from there, two along x per store, each once. Phase 2 computes
-conv1 from the shared tile with K7's fp32 FMAs in K7's order (``c, kd, ky,
-kx``), so out1 equals K7 on out0 bit for bit: 256 threads, one output and 8
-of its 16 channels each. Shared memory at C = 32: 28.0 KB of conv0 weight
+conv1 from the shared tile with the fp32 FMAs of K7's fp32 form in its
+order (``c, kd, ky, kx``), so out1 equals K7's fp32 form on
+``out0.float()``, rounded to bf16, bit for bit (K7 in bf16 runs on the
+tensor cores and keeps one bf16 ulp): 256 threads, one output and 8 of its
+16 channels each. Shared memory at C = 32: 28.0 KB of conv0 weight
 fragments, 30.9 KB of halo, 13.5 KB of conv1 weights, 23.2 KB of conv0
 tile, 95.6 KB in all: two blocks per SM. The fusion saves only the bytes of
 writing and reading out0 once (0.03-0.08 ms at the serve stages) against
@@ -50,7 +52,8 @@ bf16, the port splits them (``conv3d.py``'s note).
 fp32 (``conv3d_fused_kernel``): the direct body of K2's and K7's fp32
 forms, one conv0 voxel per thread at a time with fp32 FMAs over a 9x9x33
 region per 4x4x16 conv1 tile, then one conv1 output per thread, so that in
-fp32 too out0 equals K2 and out1 equals K7 bit for bit.
+fp32 out1 equals K7 bit for bit (out0 is held to K2's 3xTF32 form by the
+fp32 tolerance).
 """
 
 from __future__ import annotations

@@ -22,21 +22,33 @@ coordinates in the kernel, ``warp_pallas_v7m`` (:1032 → :1090) and
 ``csrc/warp_coords.cu``.
 
 Bound on the H100: memory. Per view it reads px and py (fp32) and writes
-``in_prod`` (bf16) and ``sim`` (fp32): about 227 / 350 / 223 MB per launch at
-stages 1/2/3 of the 1152x864 main path (68 / 105 / 67 µs at 3.35 TB/s).
-Design, first and simple, K1's loop with K9's footprint: one thread per
-reference pixel loops over D, the ref vector in registers; each plane reads
-the pixel's px/py (consecutive threads, consecutive addresses), picks the
-corners and weights with ``footprint()`` (``csrc/warp.cuh``, op by op as
-the plain version), gathers each corner as one contiguous C-vector in
-16-byte loads (the source map is 4-16 MB and stays in L2) and sums them op
-by op, so ``warped`` equals K9's plain version bit for bit; the ``in_prod``
-stores of a warp are consecutive along w. The TPU's x-pair bit packing,
-band DMA, ``ky``/``kd`` tiling and window cache (``dma_cache``, ``tag_ref``)
-are Mosaic mechanics and are not carried over.
+``in_prod`` (bf16) and ``sim`` (fp32): about 235 / 366 / 255 MB per launch
+at stages 1/2/3 of the 1152x864 main path (70 / 109 / 76 µs at 3.35 TB/s).
+Design (:func:`launch_plan`): the grid is pixel tiles × plane chunks ×
+views (the view on ``blockIdx.z``). A block of 128 threads owns 128
+consecutive pixels of the flattened reference, one thread a pixel, and a
+chunk holds as many planes as still leave 64 blocks an SM over all views,
+but at least 8 where D allows (K5's ``k5::chunk_planes`` rule with a larger
+target). A thread loads its pixel's px and py a plane ahead, picks the
+corners and weights with ``footprint()`` (``csrc/warp.cuh``, op by op as the
+plain version), gathers the C channels of each corner in 16-byte loads and
+sums them op by op (``gather_lane<C / 8, true>``), so ``warped`` equals K9's
+plain version bit for bit; a pair of warped values, and of ``in_prod``
+values, is rounded to bf16 by one ``cvt.rn.bf16x2.f32``. A warp's threads
+are 32 consecutive pixels, so each 2-byte evict-first ``in_prod`` store of
+a warp writes 64 contiguous bytes of a ``(c, d)`` row. Both entry points
+run this one body, so each view of the batched call equals the per-view
+call bit for bit. Measured against that form on the card (``PERF.md``):
+channel lanes with ``in_prod`` staged through shared memory (K1's and K5's
+forward tile) ran 7-25 % slower, 256-thread blocks up to 5 %, evict-first
+px/py loads 1-4 %, chunks of two waves 1-9 %. The TPU's x-pair bit
+packing, band DMA, ``ky``/``kd`` tiling and window cache (``dma_cache``,
+``tag_ref``) are Mosaic mechanics and are not carried over.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -44,9 +56,45 @@ from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 from .gather import warp_gather_plain
 
-__all__ = ["warp_sim_coords", "warp_sim_coords_plain", "warp_sim_coords_batched", "warp_sim_coords_batched_plain"]
+__all__ = ["warp_sim_coords", "warp_sim_coords_plain", "warp_sim_coords_batched", "warp_sim_coords_batched_plain",
+           "launch_plan", "card_plan"]
 
 CHANNELS = (8, 16, 32)
+# csrc/warp_coords.cu, namespace k8: a block's threads (one a pixel); the
+# chunk rule's target, 64 blocks on each of 132 SMs, and its least planes
+THREADS = 128
+TARGET_BLOCKS = 64 * 132
+MIN_PLANES = 8
+
+
+def launch_plan(V: int, C: int, D: int, h: int, w: int) -> dict:
+    """K8's launch plan over ``V`` views as ``csrc/warp_coords.cu`` (``k8``,
+    ``coords_grid``) makes it: the ``pixels`` of a block (consecutive in the
+    flattened reference, one thread each), the pixel ``tiles`` of a view and
+    the last one's ``tail``, the ``chunk`` of planes a block
+    (``k8::chunk_planes`` over the tiles of every view: as many chunks as
+    give ``TARGET_BLOCKS`` blocks, but at least 8 planes each where D
+    allows), the ``chunks`` of D (the last one ``last_chunk`` planes) and
+    the ``blocks`` over all views."""
+    require(C in CHANNELS, f"launch_plan: C={C} not in {CHANNELS}")
+    require(V >= 1 and D >= 1 and h * w >= 1, f"launch_plan: V={V}, D={D}, h x w = {h} x {w}")
+    tiles = -(-h * w // THREADS)
+    want = min(D, -(-TARGET_BLOCKS // (tiles * V)))  # chunks wanted
+    chunk = max(D // want, min(D, MIN_PLANES))
+    chunks = -(-D // chunk)
+    return {"pixels": THREADS, "tiles": tiles, "tail": h * w - (tiles - 1) * THREADS, "chunk": chunk,
+            "chunks": chunks, "last_chunk": D - (chunks - 1) * chunk, "blocks": tiles * chunks * V}
+
+
+def card_plan(V: int, C: int, D: int, h: int, w: int) -> dict:
+    """The launcher's own plan on the card (``warp_sim_coords_plan``): the
+    keys of :func:`launch_plan` that it sets, the ``registers`` a thread and
+    the resident ``blocks_per_sm``."""
+    keys = ["pixels", "chunk", "chunks", "blocks", "registers", "blocks_per_sm"]
+    out = (ctypes.c_int * len(keys))()
+    lib, fn = entry("warp_coords", "warp_sim_coords_plan", [I, I, I, I, I, P])
+    _build.check(lib, fn(V, C, D, h, w, ctypes.cast(out, P)), "warp_sim_coords_plan")
+    return dict(zip(keys, list(out)))
 
 
 def warp_sim_coords_plain(src, ref, px, py):

@@ -22,16 +22,19 @@ from ..ops.kernels import _build
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def build(dirs: list[Path], names: tuple[str, ...], out: Path) -> list[dict[str, ctypes.CDLL]]:
+def build(dirs: list, names: tuple[str, ...], out: Path) -> list[dict[str, ctypes.CDLL]]:
     """``DIR/<name>.cu`` of every directory, built with the flags of
     ``ops/kernels/_build.py`` (all ``nvcc`` runs at once), as
     ``[{name: library}]`` in the order of ``dirs``; each library keeps
-    ``nvcc``'s output (ptxas ``-v``) as ``ptxas_log``."""
+    ``nvcc``'s output (ptxas ``-v``) as ``ptxas_log``. An entry of ``dirs``
+    may be ``(DIR, defines)``: then ``-D`` each of ``defines`` too."""
     procs = []
-    for i, d in enumerate(dirs):
+    for i, entry in enumerate(dirs):
+        d, defines = entry if isinstance(entry, tuple) else (entry, ())
         for name in names:
             lib = out / f"{name}{i}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(d / f"{name}.cu")]
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{x}" for x in defines), "-I", str(d), "-o", str(lib),
+                   str(d / f"{name}.cu")]
             procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), i,
                           name, lib))
     libs = [{} for _ in dirs]

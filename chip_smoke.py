@@ -25,7 +25,9 @@ Phases, one JSON line each:
    line; K6 (timed beside cuDNN's
    two calls and beside K2 then K7 apart), K7, K2 at 16 output
    channels and K8 (per view and over the 4 source views in one launch),
-   which only the explicit routes run, at the serve shapes; K1-K4 again at
+   which only the explicit routes run, at the serve shapes, K7's and K8's
+   rows with the profiler's device time of a launch and their launch plans
+   on a ``route_plan`` line per stage; K1-K4 again at
    the stream point's shapes (C/D/h x w = 32/128/120x160, 16/32/240x320,
    8/8/480x640, K4 on 8 frames at 480x640); P1 and P2, the probes' kernels,
    at their probes' inputs (and P1 on a 192 KB band), bit for bit;
@@ -163,7 +165,8 @@ TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 # warp_kernel, its backward warp_sim_backward_kernel and
 # warp_sim_backward_finish_kernel (to_bf16_kernel in earlier commits); K2 in
 # bf16 conv3d_mma_kernel, in fp32 conv3d_tf32_kernel
-# (conv3d_bn_relu_kernel in earlier commits), K7 conv3d_bn_relu_kernel; K6 in bf16
+# (conv3d_bn_relu_kernel in earlier commits), K7 in bf16 conv3d_down_mma_kernel
+# (conv3d_bn_relu_kernel in earlier commits, as K7 in fp32 still); K6 in bf16
 # conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel; K3
 # exit_softargmin_kernel<cols, rows, planes> (a plain function, named
 # without "void", in earlier commits, whose csrc this script also reads), K4
@@ -174,6 +177,7 @@ KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_b
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "warp_sim_backward_finish_kernel",
                   "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
+                  "void conv3d_down_mma_kernel",
                   "lane_slice_kernel", "void row_gather_kernel", "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
@@ -708,7 +712,8 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
            timed(torch, lambda: K.warp_sim_coords(*one), 10), timed(torch, lambda: K.warp_sim_coords_plain(*one), 2),
            None, view_bytes, view_flops, PEAK_FP32_FLOPS,
            {"shape": [C, D, h, w], "sim_max_abs_err": float(d_sim.max()),
-            "sim_max_rel_err": float((d_sim / (ip_p.float().abs().sum(0) + 1e-30)).max())})
+            "sim_max_rel_err": float((d_sim / (ip_p.float().abs().sum(0) + 1e-30)).max()),
+            "device_ms": kernel_device_ms(torch, lambda: K.warp_sim_coords(*one), "warp_coords_kernel", reps=10)})
     del ip_k, ip_p, sim_k, sim_p, d_sim
     stacked = [torch.stack(t).contiguous() for t in zip(*views)]
     ip_b, sim_b = K.warp_sim_coords_batched(*stacked)
@@ -721,7 +726,9 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
     record("warp_sim_coords_batched", s, err, f"bit for bit against {V - 1} per-view launches", err == 0.0,
            timed(torch, lambda: K.warp_sim_coords_batched(*stacked), 5),
            timed(torch, lambda: K.warp_sim_coords_batched_plain(*stacked), 1),
-           None, (V - 1) * view_bytes, (V - 1) * view_flops, PEAK_FP32_FLOPS, {"shape": [V - 1, C, D, h, w]})
+           None, (V - 1) * view_bytes, (V - 1) * view_flops, PEAK_FP32_FLOPS,
+           {"shape": [V - 1, C, D, h, w], "device_ms": kernel_device_ms(
+               torch, lambda: K.warp_sim_coords_batched(*stacked), "warp_coords_kernel", reps=5)})
     del views, stacked, one
 
     def weights(o, c):
@@ -744,7 +751,10 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
     torch.cuda.synchronize()
     e0, ok0 = one_ulp(o0, K.conv3d_bn_relu_plain(vol, *wb0))
     e1, ok1 = one_ulp(o1, K.conv3d_down_plain(o0, *wb1))
-    same_as_k2_k7 = torch.equal(o0, K.conv3d_bn_relu(vol, *wb0)) and torch.equal(o1, K.conv3d_down(o0, *wb1))
+    # K6's conv1 runs the FMAs of K7's fp32 form (the direct body) on out0:
+    # K7 in fp32 on out0's values, rounded to bf16, bit for bit
+    same_as_k2_k7 = torch.equal(o0, K.conv3d_bn_relu(vol, *wb0)) and torch.equal(
+        o1, K.conv3d_down(o0.float(), *wb1).to(torch.bfloat16))
     lw0, lw1 = bf(wb0), bf(wb1)
     Do, ho, wo = D // 2, h // 2, w // 2
     record("conv3d_front_fused", s, max(e0, e1), "out0 vs K2's plain, out1 vs K7's plain on out0: "
@@ -770,12 +780,41 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
         torch.cuda.synchronize()
         err, ok = one_ulp(y, plain(x, *wb))
         lw = bf(wb)
+        extra = {"shape": list(x.shape)}
+        if stride == 2:
+            extra["device_ms"] = kernel_device_ms(torch, lambda: fn(x, *wb), "conv3d_down_mma_kernel", reps=10)
         record(name, s, err, "|d| <= 2^-7|plain| + 1e-3 (one bf16 ulp)", ok,
                timed(torch, lambda: fn(x, *wb), 5), timed(torch, lambda: plain(x, *wb), 3),
                timed(torch, lambda: F.conv3d(x[None], *lw, stride=stride, padding=1).relu_(), 5),
                (x.numel() + y.numel()) * 2 + sum(t.numel() * 4 for t in wb),
-               2 * 27 * x.shape[0] * 16 * y[0].numel(), PEAK_BF16_FLOPS, {"shape": list(x.shape)})
+               2 * 27 * x.shape[0] * 16 * y[0].numel(), PEAK_BF16_FLOPS, extra)
         del x, y
+    route_plans(s, (C, D, h, w))
+
+
+def route_plans(s, shape) -> None:
+    """K7's and K8's launch plans at stage ``s``'s serve shape, as their
+    launchers make them on the card (``route_plan`` line): K7 on conv0's
+    output (its tile, tiles, blocks, registers, blocks an SM, shared bytes),
+    K8 per view and over the V-1 source views (lanes a pixel, pixels a
+    block, chunk, chunks, blocks, registers, blocks an SM, shared bytes)."""
+    import ctypes
+
+    from cds_mvsnet_tpu_torch.ops.kernels import _build
+    from cds_mvsnet_tpu_torch.ops.kernels import conv3d as k7_module
+    from cds_mvsnet_tpu_torch.ops.kernels import warp_coords as k8_module
+    from cds_mvsnet_tpu_torch.ops.kernels._launch import I, P, entry
+
+    C, D, h, w = shape
+    keys = ("tile_z", "tile_y", "tile_x", "tiles", "blocks", "registers", "blocks_per_sm", "shared_bytes")
+    out = (ctypes.c_int * len(keys))()
+    lib, fn = entry("conv3d", "conv3d_down_plan", [I] * 5 + [P])
+    _build.check(lib, fn(16, 8, D, h, w, ctypes.cast(out, P)), "conv3d_down_plan")
+    emit({"phase": "route_plan", "stage": s,
+          "conv3d_down": {"shape": [8, D, h, w], **dict(zip(keys, out)),
+                          "box_bytes": k7_module.launch_plan(8, D, h, w)["box_bytes"]},
+          "warp_sim_coords": {"shape": [C, D, h, w], **k8_module.card_plan(1, C, D, h, w)},
+          "warp_sim_coords_batched": {"shape": [V - 1, C, D, h, w], **k8_module.card_plan(V - 1, C, D, h, w)}})
 
 
 def protocol_stage_shapes():

@@ -663,15 +663,54 @@ def test_conv3d_down_matches_plain(gen, dtype, C, O):
     assert conv_close(got, K.conv3d_down_plain(vol, w, b), vol, w, b, stride=2)
 
 
+@pytest.mark.parametrize("C,O", [(8, 16), (16, 16), (16, 8)])
+@pytest.mark.parametrize("shape", [(6, 18, 72), (4, 10, 136), (2, 2, 8), (8, 12, 50), (10, 20, 258), (2, 4, 6)])
+def test_conv3d_down_tiles(gen, C, O, shape):
+    """K7 in bf16 on its 2x4x32 output tiles: w a multiple of 8 (16-byte
+    loads) with partial tiles along every axis, w not a multiple of 8
+    (two-byte loads), volumes smaller than a tile; within one bf16 ulp of
+    the plain version, and two runs identical."""
+    vol, w, b = conv_rig(gen, C, O, torch.bfloat16, shape)
+    got = K.conv3d_down(vol, w, b)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (O, *(n // 2 for n in shape))
+    assert conv_close(got, K.conv3d_down_plain(vol, w, b), vol, w, b, stride=2)
+    assert torch.equal(got, K.conv3d_down(vol, w, b))
+
+
+@pytest.mark.parametrize("shape", [(8, 48, 216, 288), (8, 32, 432, 576), (8, 8, 864, 1152), (16, 6, 10, 46)])
+def test_conv3d_down_plan_matches_card(gen, shape):
+    """The launcher's plan (``conv3d_down_plan``) against the CPU mirror
+    (``ops/kernels/conv3d.py::launch_plan``); the route shapes at two
+    blocks an SM."""
+    import ctypes
+
+    from cds_mvsnet_tpu_torch.ops.kernels import _build
+    from cds_mvsnet_tpu_torch.ops.kernels import conv3d as k7
+    from cds_mvsnet_tpu_torch.ops.kernels._launch import I, P, entry
+
+    C, D, h, w = shape
+    out = (ctypes.c_int * 8)()
+    lib, fn = entry("conv3d", "conv3d_down_plan", [I] * 5 + [P])
+    _build.check(lib, fn(16, C, D, h, w, ctypes.cast(out, P)), "conv3d_down_plan")
+    plan = k7.launch_plan(C, D, h, w)
+    assert tuple(out[:3]) == plan["tile"] and out[3] == plan["tiles"] and out[7] == plan["shared_bytes"]
+    assert out[4] == min(plan["tiles"], out[6] * torch.cuda.get_device_properties(0).multi_processor_count)
+    if C == 8:
+        assert out[6] == 2
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("C,shape", [(8, (6, 10, 46)), (32, (10, 18, 70)), (16, (4, 14, 30)), (32, (8, 26, 38))])
 def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     """K6 on shapes no tile divides: out0 against K2's plain version, out1
     against K7's plain version on the kernel's own out0 (so a flipped ulp of
-    out0 does not propagate); and K6 computes exactly what K7 does and, in
-    bf16, what K2 does (their shared body, conv3d_mma.cuh), so every voxel
-    of out0 is stored once, by the block that owns it. In fp32 K6's conv0 is
-    the direct fp32 body and K2 the 3xTF32 one: both within the tolerance."""
+    out0 does not propagate); and K6's out1 is exactly K7's fp32 form (the
+    direct body, whose FMAs K6's conv1 repeats) on out0's values, rounded to
+    out0's dtype, and in bf16 out0 what K2 computes (their shared body,
+    conv3d_mma.cuh), so every voxel of out0 is stored once, by the block
+    that owns it. In fp32 K6's conv0 is the direct fp32 body and K2 the
+    3xTF32 one: both within the tolerance."""
     vol, w0, b0 = conv_rig(gen, C, 8, dtype, shape)
     w1 = uniform(gen, (16, 8, 3, 3, 3), -(27 * 8) ** -0.5, (27 * 8) ** -0.5, torch.float32)
     b1 = uniform(gen, (16,), -0.1, 0.1, torch.float32)
@@ -681,7 +720,7 @@ def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     assert K.conv3d_front_fused.launches == before + 1
     assert conv_close(out0, K.conv3d_bn_relu_plain(vol, w0, b0), vol, w0, b0)
     assert conv_close(out1, K.conv3d_down_plain(out0, w1, b1), out0, w1, b1, stride=2)
-    assert torch.equal(out1, K.conv3d_down(out0, w1, b1))
+    assert torch.equal(out1, K.conv3d_down(out0.float(), w1, b1).to(dtype))
     if dtype == torch.bfloat16:
         assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0))
 
@@ -706,7 +745,42 @@ def test_warp_sim_coords_matches_plain(gen, C):
     assert bool((ip[:, :, :, -3:] == 0).all()) and bool((sim[:, :, -3:] == 0).all())
 
 
-@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("D,h,w", [(1, 19, 37), (1, 16, 32), (3, 7, 13), (9, 1, 1), (4, 33, 65)])
+def test_warp_sim_coords_ragged_and_one_plane(gen, C, D, h, w):
+    """K8 at D = 1 and on grids no block divides (hw odd, below a block,
+    a single pixel), in_prod bit for bit with the plain version; nothing is
+    written past the last pixel (the outputs' tail stays as filled); two
+    runs identical."""
+    H, W = 23, 41
+    src, ref = uniform(gen, (H, W, C)), uniform(gen, (C, h, w))
+    px = uniform(gen, (D, h, w), -3.0, W + 2.0, torch.float32)
+    py = uniform(gen, (D, h, w), -3.0, H + 2.0, torch.float32)
+    ip, sim = K.warp_sim_coords(src, ref, px, py)
+    ip2, sim2 = K.warp_sim_coords(src, ref, px, py)
+    torch.cuda.synchronize()
+    ip_p, sim_p = K.warp_sim_coords_plain(src, ref, px, py)
+    assert torch.equal(ip, ip_p) and torch.equal(ip, ip2) and torch.equal(sim, sim2)
+    assert bool(((sim - sim_p).abs() <= 1e-5 * ip_p.float().abs().sum(0) + 1e-30).all())
+    # the batched call's views sit back to back: a view's tail must not spill into the next
+    ipb, simb = K.warp_sim_coords_batched(*(torch.stack([t, t]) for t in (src, ref, px, py)))
+    assert torch.equal(ipb[0], ip) and torch.equal(ipb[1], ip) and torch.equal(simb[1], sim)
+
+
+@pytest.mark.parametrize("V", [1, 4])
+@pytest.mark.parametrize("shape", [(32, 48, 216, 288), (16, 32, 432, 576), (8, 8, 864, 1152), (8, 1, 19, 37)])
+def test_warp_sim_coords_plan_matches_card(gen, V, shape):
+    """The launcher's plan (``warp_sim_coords_plan``) against the CPU
+    mirror (``ops/kernels/warp_coords.py::launch_plan``)."""
+    from cds_mvsnet_tpu_torch.ops.kernels.warp_coords import card_plan, launch_plan
+
+    card, plan = card_plan(V, *shape), launch_plan(V, *shape)
+    assert {k: card[k] for k in ("pixels", "chunk", "chunks", "blocks")} == {
+        k: plan[k] for k in ("pixels", "chunk", "chunks", "blocks")}
+    assert card["blocks_per_sm"] >= 4 and card["registers"] <= 128
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
 def test_warp_sim_coords_batched_matches_per_view(gen, C):
     rigs = [gather_rig(gen, C, torch.bfloat16) for _ in range(4)]
     src = torch.stack([r[0] for r in rigs])
