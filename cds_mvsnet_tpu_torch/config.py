@@ -1,12 +1,14 @@
-"""Model and training hyperparameters (own copies of
-``cds_mvsnet_tpu.config.ModelConfig``, ``TrainConfig`` and ``Config``, with
-the fields the train path reads)."""
+"""Model, data and training hyperparameters (own copies of
+``cds_mvsnet_tpu.config.ModelConfig``, ``DataConfig``, ``TrainConfig`` and
+``Config``): ``Config.load`` reads the shipped ``configs/config_*.json`` to
+the same fields and values."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from pathlib import Path
 
 
 @dataclass(frozen=True)
@@ -30,6 +32,24 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """One training dataset: its reader (``dtu`` or ``blended``), where it
+    lies, and its batch."""
+
+    datapath: str = ""
+    listfile: str = ""
+    dataset: str = "dtu"  # dtu | blended | general
+    nviews: int = 5
+    ndepths: int = 192
+    interval_scale: float = 1.06
+    max_h: int = 864
+    max_w: int = 1152
+    fix_res: bool = False
+    batch_size: int = 1
+    shuffle: bool = False
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """SGD with weight decay and a step learning-rate schedule, as the
     shipped ``configs/config_*.json`` set it."""
@@ -41,9 +61,11 @@ class TrainConfig:
     lr_step: int = 3
     lr_gamma: float = 0.5
     dlossw: tuple[float, ...] = (0.5, 1.0, 2.0)
+    depth_scale: float = 1.0
     save_period: int = 1
     eval_freq: int = 3
     logging_every: int = 50
+    seed: int = 123
     early_stop: int = 10
     monitor: str = "min val_loss"
     # "fp32" or "bf16": dtype of the convolutions, features and volumes;
@@ -56,12 +78,36 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """What the Trainer writes to ``config.json`` beside its checkpoints."""
+    """A training run; the Trainer writes it to ``config.json`` beside its
+    checkpoints."""
 
     name: str = "cds_mvsnet_tpu"
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: tuple[DataConfig, ...] = ()
     save_dir: str = "saved"
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "Config":
+        """Keys a section's dataclass lacks are ignored; lists become
+        tuples."""
+        raw = json.loads(text)
+
+        def tupled(d, cls):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in names})
+
+        return Config(
+            name=raw.get("name", "cds_mvsnet_tpu"),
+            model=tupled(raw.get("model", {}), ModelConfig),
+            train=tupled(raw.get("train", {}), TrainConfig),
+            data=tuple(tupled(d, DataConfig) for d in raw.get("data", [])),
+            save_dir=raw.get("save_dir", "saved"),
+        )
+
+    @staticmethod
+    def load(path) -> "Config":
+        return Config.from_json(Path(path).read_text())

@@ -1,1 +1,2 @@
-"""Eval data: image decode and resize, the eval dataset, the prefetching loader."""
+"""Data: image decode and resize, the eval dataset, the DTU and BlendedMVS
+training readers, the prefetching loader."""

@@ -1,9 +1,20 @@
 """Batching data loader with host worker threads and device prefetch.
 
-Counterpart of ``cds_mvsnet_tpu/data/loader.py::DataLoader`` as eval uses
-it (no shuffling, every sample): the same batches in the same order, the
-same ragged final batch, and a worker's exception raised in the consumer. A
-thread pool decodes the samples, submitted in order and ahead of the batch
+Counterpart of ``cds_mvsnet_tpu/data/loader.py::DataLoader``: the same
+batches in the same order (with ``shuffle``, an epoch's order is the next
+``shuffle`` of one ``np.random.default_rng(seed)``), the same ragged final
+batch or none with ``drop_last``, and a worker's exception raised in the
+consumer. ``shard=(start, size)`` yields only those samples of every batch
+(a rank's slice of the global batch, ``parallel.process_local_batch_slice``),
+so that ranks with the same seed together cover the one-process batches.
+
+A dataset with ``draw(idx)`` and ``load(idx, drawn)`` (the training
+readers: ``drawn`` is the sample's source-view permutation) has every
+sample of an epoch drawn on the iterating thread, in the order of the
+epoch's batches and for the other ranks' samples too, before any decode:
+the draws do not depend on the number of workers or on which runs first,
+and equal those of the JAX loader at one worker. A thread pool decodes the
+samples, submitted in order and ahead of the batch
 that needs them (across batch boundaries, so that at batch size 1 the
 workers decode the next samples in parallel, where the JAX loader maps the
 pool over one batch at a time), and the batch is collated as numpy. On the card a
@@ -62,14 +73,47 @@ class DataLoader:
     pass through, and ``batch["host"]`` holds the collated numpy arrays, for
     a consumer that writes them out without a device-to-host copy."""
 
-    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 4, *, device):
+    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 4, *, device, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 123, shard: tuple[int, int] | None = None):
+        if shard is not None and not drop_last:
+            raise ValueError("a sharded loader drops the ragged last batch: pass drop_last=True")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.shard = shard
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _plan(self) -> list[list[tuple]]:
+        """One epoch's batches, each a list of ``(index, drawn)`` (``drawn``
+        None for a dataset without ``draw``), cut to ``shard``."""
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        draw = getattr(self.dataset, "draw", None)
+        plan = []
+        for i in range(0, len(idx), self.batch_size):
+            b = [int(j) for j in idx[i : i + self.batch_size]]
+            if len(b) < self.batch_size and self.drop_last:
+                continue
+            items = [(j, draw(j) if draw else None) for j in b]
+            if self.shard is not None:
+                start, size = self.shard
+                items = items[start : start + size]
+            plan.append(items)
+        return plan
+
+    def _sample(self, item: tuple) -> dict:
+        j, drawn = item
+        return self.dataset[j] if drawn is None else self.dataset.load(j, drawn)
 
     def _place(self, arrays: dict, side):
         """The arrays on the device, and the event after their copies (None
@@ -86,7 +130,8 @@ class DataLoader:
         return placed, ready
 
     def __iter__(self) -> Iterator[dict]:
-        n = len(self.dataset)
+        plan = self._plan()
+        items = [item for batch in plan for item in batch]
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
         side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -99,15 +144,15 @@ class DataLoader:
                     # decodes even at batch size 1
                     ahead = max(self.num_workers, PREFETCH * self.batch_size)
                     pending: deque = deque()
-                    nxt = 0
-                    for start in range(0, n, self.batch_size):
+                    nxt = stop_at = 0
+                    for size in map(len, plan):
                         if stop.is_set():
                             return
-                        stop_at = min(start + self.batch_size, n)
-                        while nxt < n and (nxt < stop_at or len(pending) < ahead):
-                            pending.append(pool.submit(self.dataset.__getitem__, nxt))
+                        stop_at += size
+                        while nxt < len(items) and (nxt < stop_at or len(pending) < ahead):
+                            pending.append(pool.submit(self._sample, items[nxt]))
                             nxt += 1
-                        batch = _collate([pending.popleft().result() for _ in range(start, stop_at)])
+                        batch = _collate([pending.popleft().result() for _ in range(size)])
                         arrays = {k: v for k, v in batch.items() if not isinstance(v, list)}
                         placed, ready = self._place(arrays, side)
                         placed.update({k: v for k, v in batch.items() if isinstance(v, list)})

@@ -149,7 +149,7 @@ class CDSMVSNet(nn.Module):
         first = []
 
         def run(x, e):
-            local = StatsCollector()
+            local = StatsCollector(stats.group)
             out = self.feature(x, e, temperature, stats=local, **bn)
             first.append(local)
             return out

@@ -13,6 +13,12 @@ statistics (unbiased variance, momentum 0.1) once, when the train step
 calls :meth:`StatsCollector.apply` after the optimizer step. Nothing is
 written in place during the forward, so a forward that runs twice (the
 FeatureNet under ``torch.utils.checkpoint``) cannot move a statistic twice.
+
+A collector made with a process group (data-parallel training, one batch
+slice a rank) makes the batch statistics global, as the JAX package's
+``batch_norm`` with ``axis_name`` does: the sums and the count are taken
+over every rank's slice, per stack group, and the gradient flows through
+them (:func:`global_sum`). Without one, ``F.batch_norm`` runs as before.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -31,6 +38,7 @@ __all__ = [
     "instance_norm",
     "batch_norm",
     "batch_norm_train",
+    "global_sum",
     "leaky_relu",
     "StatsCollector",
     "BatchNorm",
@@ -84,13 +92,54 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
     return out * weight.to(x.dtype).reshape(shape) + bias.to(x.dtype).reshape(shape)
 
 
-def batch_norm_train(x, weight, bias, groups: int = 1, eps: float = 1e-5):
+class _GlobalSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def global_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group``, differentiably: the
+    gradient that reaches each rank's ``t`` is the sum of every rank's
+    gradient of the result, so that each rank's backward of its own loss
+    share gives its part of the gradient of the total."""
+    return _GlobalSum.apply(t, group)
+
+
+def _batch_norm_global(xg, weight, bias, eps: float, group):
+    """Train BatchNorm of ``xg (N, C, ...)`` on the statistics of every
+    rank's slice: the mean from the global sum and count, then the biased
+    variance from the global sum of squared deviations (two passes, as
+    ``F.batch_norm`` is accurate where E[x²] − E[x]² cancels)."""
+    dims = (0, *range(2, xg.ndim))
+    shape = (1, -1) + (1,) * (xg.ndim - 2)
+    xf = xg.float()
+    n = xf.numel() // xf.shape[1] * dist.get_world_size(group)
+    mean = global_sum(xf.sum(dims), group) / n
+    dev = xf - mean.reshape(shape)
+    var = global_sum(dev.square().sum(dims), group) / n
+    out = dev * torch.rsqrt(var + eps).reshape(shape) * weight.float().reshape(shape) + bias.float().reshape(shape)
+    return out.to(xg.dtype), mean.detach(), (var * (n / max(n - 1, 1))).detach()
+
+
+def batch_norm_train(x, weight, bias, groups: int = 1, eps: float = 1e-5, group=None):
     """Train BatchNorm over every dim but channel 1, on batch statistics.
 
     ``groups > 1`` splits the leading dim into that many equal groups, each
     with statistics of its own (one group per upstream module call that the
     stacked batch folds together). Returns ``(out, mean (G, C), var (G, C))``
     with the unbiased batch variance, for the running-statistics update.
+    ``group``: a process group over whose ranks' slices the statistics are
+    taken (:func:`_batch_norm_global`).
     """
     N, C = x.shape[:2]
     G = groups
@@ -100,12 +149,15 @@ def batch_norm_train(x, weight, bias, groups: int = 1, eps: float = 1e-5):
         weight, bias = weight.repeat(G), bias.repeat(G)
     else:
         xg = x
-    # F.batch_norm with momentum 1 leaves the batch mean and the unbiased
-    # batch variance in these fresh buffers; the model's buffers stay as
-    # they are
-    mean = torch.zeros(G * C, dtype=torch.float32, device=x.device)
-    var = torch.ones(G * C, dtype=torch.float32, device=x.device)
-    out = F.batch_norm(xg, mean, var, weight.float(), bias.float(), training=True, momentum=1.0, eps=eps)
+    if group is not None:
+        out, mean, var = _batch_norm_global(xg, weight, bias, eps, group)
+    else:
+        # F.batch_norm with momentum 1 leaves the batch mean and the unbiased
+        # batch variance in these fresh buffers; the model's buffers stay as
+        # they are
+        mean = torch.zeros(G * C, dtype=torch.float32, device=x.device)
+        var = torch.ones(G * C, dtype=torch.float32, device=x.device)
+        out = F.batch_norm(xg, mean, var, weight.float(), bias.float(), training=True, momentum=1.0, eps=eps)
     if G > 1:
         out = out.reshape(N // G, G, C, *rest).transpose(0, 1).reshape(x.shape)
     return out, mean.reshape(G, C), var.reshape(G, C)
@@ -122,10 +174,13 @@ class StatsCollector:
     ``order[g]`` is the upstream call index of stack group g.
     :meth:`apply` moves each module's running statistics by one EMA step per
     upstream call, in call order, as torch's BatchNorm does per forward.
+    ``group``: the process group whose ranks' slices the statistics span
+    (None: this process's batch alone).
     """
 
-    def __init__(self):
+    def __init__(self, group=None):
         self.calls: list = []
+        self.group = group
 
     def add(self, bn: "BatchNorm", mean, var, order=None) -> None:
         G = mean.shape[0]
@@ -160,7 +215,7 @@ class BatchNorm(nn.Module):
     def forward(self, x, stats: StatsCollector | None = None, groups: int = 1, order=None):
         if stats is None:
             return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var)
-        out, mean, var = batch_norm_train(x, self.weight, self.bias, groups)
+        out, mean, var = batch_norm_train(x, self.weight, self.bias, groups, group=stats.group)
         stats.add(self, mean, var, order)
         return out
 

@@ -76,8 +76,8 @@ def fused(lib, vol, w0, b0, w1, b1):
     C, D, h, w = vol.shape
     out0 = torch.empty((8, D, h, w), dtype=vol.dtype, device=vol.device)
     out1 = torch.empty((16, D // 2, h // 2, w // 2), dtype=vol.dtype, device=vol.device)
-    err = fn(*(P(t.data_ptr()) for t in (vol, w0, b0, w1, b1, out0, out1)), 0, C, D, h, w,
-             stream_ptr())
+    err = fn(*(P(t.data_ptr()) for t in (vol, w0, b0, w1, b1, out0, out1)), int(vol.dtype == torch.float32), C, D,
+             h, w, stream_ptr())
     if err:
         raise RuntimeError(f"conv3d_front_fused_launch: CUDA error {err}")
     return out0, out1
@@ -100,7 +100,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--kernels", nargs="+", default=["k2", "k2_o16", "k6", "k2_fp32", "k7"],
-                    help="cases to time: k2, k2_o16, k6, k2_fp32, k7")
+                    help="cases to time: k2, k2_o16, k6, k2_fp32, k7, k6_fp32, k7_fp32")
     ap.add_argument("--loads-only", action="store_true",
                     help="also time K7 of the first source with its MMAs skipped")
     args = ap.parse_args(argv)
@@ -126,6 +126,8 @@ def main(argv=None) -> int:
     cases += [("k2_fp32", f"{point}{s}", shape, 8) for point, shapes in
               (("protocol", PROTOCOL), ("serve", SERVE), ("stream", STREAM)) for s, shape in enumerate(shapes, 1)]
     cases += [("k7", f"serve{s}", (8, D, h, w), 16) for s, (_, D, h, w) in enumerate(SERVE, start=1)]
+    cases += [("k6_fp32", f"protocol{s}", shape, 8) for s, shape in enumerate(PROTOCOL, start=1)]
+    cases += [("k7_fp32", f"protocol{s}", (8, D, h, w), 16) for s, (_, D, h, w) in enumerate(PROTOCOL, start=1)]
     cases = [case for case in cases if case[0] in args.kernels]
     sources = list(args.dirs) + ([(args.dirs[0], ("CDS_K7_LOADS_ONLY",))] if args.loads_only else [])
     with tempfile.TemporaryDirectory() as tmp:
@@ -136,6 +138,9 @@ def main(argv=None) -> int:
         for kernel, point, shape, O in cases:
             if kernel == "k7":
                 time_k7(libs, sources, point, shape, O, uniform, weights, args)
+                continue
+            if kernel in ("k6_fp32", "k7_fp32"):
+                time_fp32_front(libs, args, kernel, point, shape, O, uniform, weights)
                 continue
             fp32 = kernel == "k2_fp32"
             vol = uniform(shape, dtype=torch.float32 if fp32 else torch.bfloat16)
@@ -192,6 +197,59 @@ def main(argv=None) -> int:
             del vol
             torch.cuda.empty_cache()
     return 0
+
+
+def fp32_err(got, want, vol, w, b, stride: int) -> dict:
+    """The largest difference of an fp32 conv to its plain version, and
+    whether it is within 1e-5 of the sum of |terms| + 1e-7."""
+    d = (got - want).abs()
+    terms = F.conv3d(vol.abs()[None], w.abs(), stride=stride, padding=1)[0] + b.abs()[:, None, None, None]
+    return {"max_abs_err": float(d.max()), "within_fp32_tol": bool((d <= 1e-5 * terms + 1e-7).all())}
+
+
+def time_fp32_front(libs, args, kernel, point, shape, O, uniform, weights) -> None:
+    """K6 or K7 in fp32 (the direct bodies) at one shape, each source beside
+    cuDNN in fp32 with TF32 off: a row per source with its bound and check."""
+    C, D, h, w = shape
+    vol = uniform(shape, dtype=torch.float32)
+    wb = weights(O, C)
+    runs, checks = {}, {}
+    if kernel == "k7_fp32":
+        want = K.conv3d_down_plain(vol, *wb)
+        for i, lib in enumerate(libs):
+            checks[i] = fp32_err(conv(lib, "conv3d_down_launch", vol, *wb, 2), want, vol, *wb, 2)
+            runs[i] = lambda lib=lib: conv(lib, "conv3d_down_launch", vol, *wb, 2)
+        runs["cudnn"] = lambda: F.conv3d(vol[None], *wb, stride=2, padding=1).relu_()
+        runs["plain"] = lambda: K.conv3d_down_plain(vol, *wb)
+        out_elems = want.numel()
+        flops = 2 * 27 * C * out_elems
+        weights_bytes = sum(t.numel() * 4 for t in wb)
+    else:
+        w1b1 = weights(16, 8)
+        want0, want1 = K.conv3d_front_fused_plain(vol, *wb, *w1b1)
+        for i, lib in enumerate(libs):
+            out0, out1 = fused(lib, vol, *wb, *w1b1)
+            e0, e1 = fp32_err(out0, want0, vol, *wb, 1), fp32_err(out1, K.conv3d_down_plain(out0, *w1b1), out0,
+                                                                 *w1b1, 2)
+            checks[i] = {"max_abs_err": max(e0["max_abs_err"], e1["max_abs_err"]),
+                         "within_fp32_tol": e0["within_fp32_tol"] and e1["within_fp32_tol"]}
+            runs[i] = lambda lib=lib: fused(lib, vol, *wb, *w1b1)
+        runs["cudnn"] = lambda: F.conv3d(F.conv3d(vol[None], *wb, padding=1).relu_(), *w1b1, stride=2,
+                                         padding=1).relu_()
+        runs["plain"] = lambda: K.conv3d_front_fused_plain(vol, *wb, *w1b1)
+        out_elems = want0.numel() + want1.numel()
+        flops = 2 * 27 * C * want0.numel() + 2 * 27 * 8 * want1.numel()
+        weights_bytes = sum(t.numel() * 4 for t in (*wb, *w1b1))
+    med = medians(runs, args.rounds, args.reps)
+    io_bytes = (vol.numel() + out_elems) * 4 + weights_bytes
+    bound = {"bytes": io_bytes / 3.35e12 * 1e3, "operations": flops / 67e12 * 1e3}
+    for i, d in enumerate(args.dirs):
+        print(json.dumps({"kernel": kernel, "point": point, "shape": list(shape), "O": O, "dir": str(d),
+                          "ms": med[i], "cudnn_ms": med["cudnn"], "plain_ms": med["plain"],
+                          "bound_ms": max(bound.values()),
+                          "bound_by": max(bound, key=bound.get), "bound_halves_ms": bound, **checks[i]}), flush=True)
+    del vol
+    torch.cuda.empty_cache()
 
 
 def time_k7(libs, sources, point, shape, O, uniform, weights, args) -> None:

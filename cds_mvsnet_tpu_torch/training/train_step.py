@@ -10,11 +10,19 @@ Counterpart of ``cds_mvsnet_tpu/training/train_step.py::make_train_step``.
 - ``lr = lr·gamma^((epoch − 1) // lr_step)`` for the 1-based epoch.
 - The BN running statistics move after the optimizer step, once
   (``StatsCollector.apply``), as ``merge_stat_updates`` does.
+- Under a process group (data parallelism, a batch slice a rank) the step
+  is the one-process step on the global batch, as the JAX package's
+  data-parallel step is: the BN statistics and the loss's masked means are
+  global (``models/layers.py``, ``training/loss.py``), each rank's loss is
+  its share of the global loss, and the gradients are summed over the ranks
+  before the update (one all-reduce of every leaf's gradient), so every
+  rank applies the same update to the same weights.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..models.cds_mvsnet import CDSMVSNet
@@ -47,10 +55,11 @@ class TrainStep:
     plain version.
     """
 
-    def __init__(self, model: CDSMVSNet, cfg: TrainConfig, kernels: bool = True):
+    def __init__(self, model: CDSMVSNet, cfg: TrainConfig, kernels: bool = True, group=None):
         self.model = model
         self.cfg = cfg
         self.kernels = kernels
+        self.group = group
         self.compute_dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[cfg.compute_dtype]
         self.reset_optimizer()
 
@@ -64,21 +73,30 @@ class TrainStep:
     def gradients(self, batch: dict, temperature: float) -> tuple[dict, StatsCollector]:
         """Forward, loss and backward, without the update: leaves each
         trainable leaf's gradient in ``.grad`` and returns ``({"loss",
-        "depth_loss"}, the step's BN statistics)``."""
-        stats = StatsCollector()
+        "depth_loss"}, the step's BN statistics)``; under a process group the
+        gradients and the losses are the global batch's."""
+        stats = StatsCollector(self.group)
         dv = batch["depth_values"]
         outputs = self.model.forward_train(
             batch["imgs"], batch["proj_matrices"], dv, batch["depth"], stats, temperature=temperature,
             compute_dtype=self.compute_dtype, kernels=self.kernels, remat_features=self.cfg.remat_features,
         )
-        loss, depth_loss = final_loss(outputs, batch["depth"], batch["mask"], self.cfg.dlossw, dv[:, 1] - dv[:, 0])
+        loss, depth_loss = final_loss(outputs, batch["depth"], batch["mask"], self.cfg.dlossw, dv[:, 1] - dv[:, 0],
+                                      group=self.group)
         for p in self.params:
             p.grad = None
         loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return {"loss": loss.detach(), "depth_loss": depth_loss.detach()}, stats
+        losses = torch.stack([loss.detach(), depth_loss.detach()])
+        if self.group is not None:
+            flat = torch.cat([p.grad.reshape(-1) for p in self.params])
+            dist.all_reduce(flat, group=self.group)
+            dist.all_reduce(losses, group=self.group)
+            for p, g in zip(self.params, flat.split([p.numel() for p in self.params])):
+                p.grad = g.view_as(p)
+        return {"loss": losses[0], "depth_loss": losses[1]}, stats
 
     def __call__(self, batch: dict, temperature: float, epoch: int = 1) -> dict:
         metrics, stats = self.gradients(batch, temperature)

@@ -8,6 +8,18 @@ epochs. Checkpoints are ``.npz`` files in the JAX package's ``save_params``
 format (its ``load_params`` reads them) with a JSON sidecar (epoch,
 monitor_best); the optimizer state is not saved or restored, as in the
 reference.
+
+Under a process group (``train_cli --n_devices N``: a rank a device, each
+loader yielding its rank's slice of every global batch) the weights are
+broadcast from rank 0, the step is the global batch's (``TrainStep``), the
+validation metrics are global means (each batch's loss summed over the
+ranks' shares, then every rank's sums and counts summed), so the monitor
+and the early stop take the same decision on every rank, and only rank 0
+writes ``config.json`` and the checkpoints.
+
+``timings`` holds, for every train step, the seconds spent waiting for the
+loader's batch and the seconds of the step, which ends in a
+synchronisation of the device; ``history`` each epoch's log.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import torch
 from ..config import Config
 from ..models.cds_mvsnet import build_model, to_tensors
 from ..models.convert import load_into, save_model
+from ..parallel.mesh import replicate
 from .loss import final_loss
 from .metrics import DictAverageMeter, validation_metrics
 from .train_step import TrainStep, temperature_schedule
@@ -29,25 +42,34 @@ __all__ = ["Trainer"]
 
 
 class Trainer:
-    """Train ``build_model(config.model, params, device=device)`` over
-    ``train_loaders`` (iterables of numpy batches, as ``synthetic_batch``
-    gives them), validating on ``val_loaders``."""
+    """Train ``build_model(config.model, params, seed=config.train.seed,
+    device=device)`` over ``train_loaders`` (iterables of batches: numpy
+    arrays, as ``synthetic_batch`` gives them, or tensors on ``device``, as
+    ``data.DataLoader`` does), validating on ``val_loaders``; ``group``: the
+    process group of data-parallel training."""
 
     def __init__(self, config: Config, params, train_loaders: list, val_loaders: list | None = None,
-                 save_dir: str | None = None, log=print, device="cuda"):
+                 save_dir: str | None = None, log=print, device="cuda", group=None):
         self.config = config
         self.train_cfg = config.train
         self.train_loaders = train_loaders
         self.val_loaders = val_loaders or []
         self.log = log
         self.device = device
+        self.group = group
+        self.rank0 = group is None or torch.distributed.get_rank(group) == 0
+        self.timings: list[dict] = []
+        self.history: list[dict] = []
 
         self.save_dir = Path(save_dir or config.save_dir)
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        (self.save_dir / "config.json").write_text(config.to_json())
+        if self.rank0:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            (self.save_dir / "config.json").write_text(config.to_json())
 
-        self.model = build_model(config.model, params=params, device=device)
-        self.step = TrainStep(self.model, self.train_cfg)
+        self.model = build_model(config.model, params=params, seed=config.train.seed, device=device)
+        if group is not None:
+            replicate(self.model, group)
+        self.step = TrainStep(self.model, self.train_cfg, group=group)
         self.start_epoch = 1
         # "min val_loss" / "max val_thres2mm_error" / "off"
         monitor = (self.train_cfg.monitor or "off").split()
@@ -80,19 +102,27 @@ class Trainer:
                         break
             if epoch % self.train_cfg.save_period == 0:
                 self._save_checkpoint(epoch)
+            self.history.append({"epoch": epoch, **log})
             self.log(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in log.items()))
         return self.monitor_best
 
     def _train_epoch(self, epoch: int) -> dict:
         temperature = temperature_schedule(epoch)
         meter = DictAverageMeter()
+        cuda = torch.device(self.device).type == "cuda"
         for dl in self.train_loaders:
+            t_ready = time.perf_counter()  # when the loop asks the loader for a batch
             for it, batch in enumerate(dl):
                 t0 = time.perf_counter()
                 metrics = {k: float(v) for k, v in self.step(to_tensors(batch, self.device), temperature, epoch).items()}
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                t1 = time.perf_counter()
+                step_s = t1 - t0
+                self.timings.append({"epoch": epoch, "wait_s": t0 - t_ready, "step_s": step_s})
+                t_ready = t1
                 if it % self.train_cfg.logging_every == 0:
-                    self.log(f"epoch {epoch} iter {it}/{len(dl)} loss {metrics['loss']:.3f} "
-                             f"({time.perf_counter() - t0:.2f}s)")
+                    self.log(f"epoch {epoch} iter {it}/{len(dl)} loss {metrics['loss']:.3f} ({step_s:.2f}s)")
                 meter.update(metrics)
         return meter.mean()
 
@@ -105,14 +135,26 @@ class Trainer:
                 with torch.no_grad():
                     outputs = self.model(batch["imgs"], batch["proj_matrices"], dv, temperature=0.01)
                     di = dv[:, 1] - dv[:, 0]
-                    loss, depth_loss = final_loss(outputs, batch["depth"], batch["mask"], self.train_cfg.dlossw, di)
+                    losses = torch.stack(final_loss(outputs, batch["depth"], batch["mask"], self.train_cfg.dlossw, di,
+                                                    group=self.group))
+                    if self.group is not None:  # the global batch's loss from the ranks' shares
+                        torch.distributed.all_reduce(losses, group=self.group)
                     m = validation_metrics(outputs["refined_depth"], batch["depth"]["stage4"],
                                            batch["mask"]["stage4"], di[0])
-                m.update({"loss": loss, "depth_loss": depth_loss})
+                m.update({"loss": losses[0], "depth_loss": losses[1]})
                 meter.update({k: float(v) for k, v in m.items()})
-        return meter.mean()
+        if self.group is None:
+            return meter.mean()
+        # every rank's sums and counts: the per-image metrics' mean over
+        # all ranks' images (equal slices), the losses' mean over batches
+        keys = sorted(meter.data)
+        sums = torch.tensor([meter.data[k] for k in keys] + [meter.count], dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(sums, group=self.group)
+        return {k: float(v) / max(float(sums[-1]), 1.0) for k, v in zip(keys, sums[:-1])}
 
     def _save_checkpoint(self, epoch: int, best: bool = False) -> None:
+        if not self.rank0:
+            return
         name = "model_best" if best else f"checkpoint-epoch{epoch}"
         save_model(self.save_dir / f"{name}.npz", self.model)
         meta = {"epoch": epoch, "monitor_best": self.monitor_best, "arch": "CDSMVSNet"}
@@ -124,6 +166,8 @@ class Trainer:
         as in the reference."""
         path = Path(path)
         load_into(self.model, path)
+        if self.group is not None:
+            replicate(self.model, self.group)
         self.step.reset_optimizer()
         meta_path = path.with_suffix(".json")
         if meta_path.exists():

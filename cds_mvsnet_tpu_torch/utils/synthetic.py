@@ -1,18 +1,22 @@
 """Synthetic, geometrically consistent multi-view batches (numpy only).
 
 Own copies of ``cds_mvsnet_tpu.utils.synthetic.textured_plane_batch``,
-``synthetic_batch``, ``sphere_scene`` and ``write_eval_scene``: the same seed
-gives the same arrays, so the port and the JAX package can be fed the same
-fixture. ``write_colmap_workspace`` writes a scene as a COLMAP dense
-workspace, the input of ``data/colmap.py::convert_scene``.
+``synthetic_batch``, ``sphere_scene``, ``sphere_train_batch`` and
+``write_eval_scene``: the same seed gives the same arrays, so the port and
+the JAX package can be fed the same fixture. ``write_colmap_workspace``
+writes a scene as a COLMAP dense workspace, the input of
+``data/colmap.py::convert_scene``; ``write_dtu_train_scan`` and
+``write_blended_scan`` write a textured plane in the training datasets'
+on-disk layouts, the input of ``data/dtu.py`` and ``data/blended.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["textured_plane_batch", "synthetic_batch", "stage_resolutions", "sphere_scene", "write_eval_scene",
-           "rotmat_to_qvec", "write_colmap_workspace"]
+__all__ = ["textured_plane_batch", "synthetic_batch", "stage_resolutions", "sphere_scene", "sphere_train_batch",
+           "write_eval_scene", "rotmat_to_qvec", "write_colmap_workspace", "write_dtu_train_scan",
+           "write_blended_scan"]
 
 
 def textured_plane_batch(
@@ -278,6 +282,144 @@ def sphere_scene(
         "depth_min": depth_min,
         "depth_max": depth_max,
     }
+
+
+def sphere_train_batch(scene: dict, ref_view: int, src_views, D: int = 48, refine: bool = True):
+    """One training sample (B=1) from a ``sphere_scene``: the dataset's
+    arrays (imgs, per-stage packed cams, depth_values, GT depth and mask
+    pyramids), whose photometric evidence supports the ground truth."""
+    views = [ref_view, *src_views]
+    imgs = scene["imgs"][views][None]  # (1, V, H, W, 3)
+    cams = scene["cams"][views]  # (V, 2, 4, 4)
+    _, _, H, W, _ = imgs.shape
+
+    proj = {}
+    for stage, (h_s, w_s) in stage_resolutions(H, W, refine).items():
+        m = cams.copy()
+        m[:, 1, 0, :] *= w_s / W
+        m[:, 1, 1, :] *= h_s / H
+        proj[stage] = m[None]
+
+    depth_values = np.linspace(scene["depth_min"], scene["depth_max"], D, dtype=np.float32)[None]
+
+    gt_full = scene["gt_depth"][ref_view]  # (H, W) exact z-depth
+    wh, ww = (H // 2, W // 2) if refine else (H, W)
+    gt_res = {
+        "stage1": (wh // 4, ww // 4),
+        "stage2": (wh // 2, ww // 2),
+        "stage3": (wh, ww),
+        "stage4": (H, W) if refine else (wh, ww),
+    }
+    depth_ms, mask_ms = {}, {}
+    for stage, (h_s, w_s) in gt_res.items():
+        sy, sx = H // h_s, W // w_s
+        d = gt_full[::sy, ::sx][None].astype(np.float32)
+        depth_ms[stage] = d
+        mask_ms[stage] = ((d > scene["depth_min"]) & (d < scene["depth_max"])).astype(np.float32)
+
+    return {"imgs": imgs, "proj_matrices": proj, "depth_values": depth_values, "depth": depth_ms, "mask": mask_ms}
+
+
+def _cam_text(extrinsic, intrinsic, depth_line) -> str:
+    rows = [" ".join(str(float(x)) for x in row) for row in (*extrinsic, *intrinsic)]
+    return ("extrinsic\n" + "\n".join(rows[:4]) + "\n\nintrinsic\n" + "\n".join(rows[4:]) + "\n\n"
+            + " ".join(str(float(x)) for x in depth_line) + "\n")
+
+
+def _pair_text(refs, views) -> str:
+    """A pair file that gives each of ``refs`` every other view of ``views``
+    as its sources, nearest first."""
+    lines = [str(len(refs))]
+    for r in refs:
+        srcs = sorted((v for v in views if v != r), key=lambda v: (abs(v - r), v))
+        lines += [str(r), f"{len(srcs)} " + " ".join(f"{v} {100.0 - abs(v - r):.1f}" for v in srcs)]
+    return "\n".join(lines) + "\n"
+
+
+def _valid_band(h: int, w: int, v: int) -> np.ndarray:
+    """A view's GT mask: valid but for a band along the left edge whose
+    width grows with the view, so that views count different pixels."""
+    mask = np.ones((h, w), dtype=bool)
+    mask[:, : w // 8 * (1 + v % 3)] = False
+    return mask
+
+
+def write_dtu_train_scan(root, scan: str = "scan1", views: int = 5, refs=(0, 1, 2), seed: int = 0,
+                         plane_depth: float = 600.0, tz_step: float = 4.0) -> None:
+    """A textured plane in Yao Yao's DTU training layout under ``root``,
+    rendered at 1600x1200: ``Depths_raw/<scan>/depth_map_{vid:04}.pfm`` (the
+    plane's depth, 0 in a band at the left) and ``depth_visual_{vid:04}.png``
+    (255 where valid, 0 in the band) at that size;
+    ``Rectified/<scan>_train/rect_{vid+1:03}_{light}_r5000.png``, the
+    rendering halved and cropped to 640x512 as the reader crops the depth
+    (one image copied for the 7 lights); ``Cameras/train/{vid:08}_cam.txt``
+    with the crop's intrinsics at 1/4 (160x128) and the depth line
+    ``425 2.5``; and ``Cameras/pair.txt`` with entries for ``refs`` only."""
+    import os
+    import shutil
+
+    from PIL import Image
+
+    from ..data.dtu import prepare_hr
+    from ..io.pfm import write_pfm
+
+    H, W = 1200, 1600
+    rig = textured_plane_batch(V=views, H=H, W=W, D=192, plane_depth=plane_depth, tz_step=tz_step, seed=seed)
+    rect = os.path.join(root, "Rectified", f"{scan}_train")
+    cams_dir = os.path.join(root, "Cameras", "train")
+    depths = os.path.join(root, "Depths_raw", scan)
+    for d in (rect, cams_dir, depths):
+        os.makedirs(d, exist_ok=True)
+    sh, sw = (H // 2 - 512) // 2, (W // 2 - 640) // 2
+    for v in range(views):
+        first = os.path.join(rect, f"rect_{v + 1:0>3}_0_r5000.png")
+        Image.fromarray((prepare_hr(rig["imgs"][0, v]) * 255).round().astype(np.uint8)).save(first)
+        for light in range(1, 7):
+            shutil.copyfile(first, os.path.join(rect, f"rect_{v + 1:0>3}_{light}_r5000.png"))
+        cam = rig["proj_matrices"]["stage3"][0, v]  # full-resolution intrinsics
+        intr = cam[1, :3, :3].astype(np.float64) / 2  # the halved image
+        intr[0, 2] -= sw
+        intr[1, 2] -= sh
+        intr[:2] /= 4
+        with open(os.path.join(cams_dir, f"{v:0>8}_cam.txt"), "w") as f:
+            f.write(_cam_text(cam[0], intr, (425.0, 2.5)))
+        mask = _valid_band(H, W, v)
+        write_pfm(os.path.join(depths, f"depth_map_{v:0>4}.pfm"),
+                  np.where(mask, plane_depth - tz_step * v, 0.0).astype(np.float32))
+        Image.fromarray(mask.astype(np.uint8) * 255).save(os.path.join(depths, f"depth_visual_{v:0>4}.png"))
+    with open(os.path.join(root, "Cameras", "pair.txt"), "w") as f:
+        f.write(_pair_text(refs, range(views)))
+
+
+def write_blended_scan(root, scan: str = "scan1", views: int = 3, seed: int = 0, plane_depth: float = 600.0,
+                       tz_step: float = 4.0) -> None:
+    """A textured plane in the BlendedMVS low-res layout under
+    ``root/<scan>``: ``blended_images/{vid:08}.jpg`` at 768x576,
+    ``cams/{vid:08}_cam.txt`` with full-resolution intrinsics (the reader
+    divides them by 4) and a 4-token depth line, ``cams/pair.txt`` giving
+    each view every other, and ``rendered_depth_maps/{vid:08}.pfm`` (0,
+    invalid, in a band at the left)."""
+    import os
+
+    from PIL import Image
+
+    from ..io.pfm import write_pfm
+
+    H, W = 576, 768
+    rig = textured_plane_batch(V=views, H=H, W=W, D=128, plane_depth=plane_depth, tz_step=tz_step, seed=seed)
+    base = os.path.join(root, scan)
+    for sub in ("blended_images", "cams", "rendered_depth_maps"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    for v in range(views):
+        Image.fromarray((rig["imgs"][0, v] * 255).round().astype(np.uint8)).save(
+            os.path.join(base, "blended_images", f"{v:0>8}.jpg"), quality=95)
+        cam = rig["proj_matrices"]["stage3"][0, v]
+        with open(os.path.join(base, "cams", f"{v:0>8}_cam.txt"), "w") as f:
+            f.write(_cam_text(cam[0], cam[1, :3, :3], (425.0, 3.75, 128, 905.0)))
+        write_pfm(os.path.join(base, "rendered_depth_maps", f"{v:0>8}.pfm"),
+                  np.where(_valid_band(H, W, v), plane_depth - tz_step * v, 0.0).astype(np.float32))
+    with open(os.path.join(base, "cams", "pair.txt"), "w") as f:
+        f.write(_pair_text(range(views), range(views)))
 
 
 def write_eval_scene(root, scan: str, scene: dict, ndepths: int = 192) -> None:

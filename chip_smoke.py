@@ -17,7 +17,9 @@ Phases, one JSON line each:
    fp32 FMA floor apart;
    K9 (fp32 and bf16, bit for bit) and K2 in fp32 at the three stage shapes
    of the DTU protocol point (the cascade at 576x768 under refinement), and
-   K4 on that point's conv01 input;
+   K4 on that point's conv01 input; K9 and K2 in fp32 again at the stage
+   shapes of the train CLI's validation batches (the 512x640 DTU train crop
+   at 256x320 under refinement; rows tagged ``"point": "train_val"``);
    K5's forward and backward are checked the same way at the three stage
    shapes of the train point (per batch element) and at its ground-truth
    warps (D = 1), each row with the profiler's device time of a call, and
@@ -58,6 +60,18 @@ Phases, one JSON line each:
    weights (the gate) and the plain fp32 path (reported), and each of that
    step's K5 calls, forward and backward, against the plain versions on its
    own inputs (the gate); one more step runs under ``torch.profiler``;
+   train_cli: the train CLI (``cds_mvsnet_tpu_torch.cli.train_cli.main``,
+   in this process) for one epoch on a synthetic DTU training scan in Yao
+   Yao's layout written to disk (5 views of a textured plane, 3 ref views x
+   7 lights: 10 steps of 2), with ``configs/config_dtu.json``'s model,
+   nviews 4 and SGD settings in bf16 (``--bs 2 --n_devices 1``), then its
+   validation (10 fp32 batches of 2); every loss and validation metric
+   finite, K5's launches exactly 36 a step and K9's and K2's 18 and 6 a
+   validation batch, the parameters on the card, a checkpoint and its
+   sidecar written, and ``--resume`` from it restoring the weights without
+   training; its s/step, loader-wait share and peak memory beside the train
+   phase's s/step; then ``tools/dryrun_multichip.py`` with one ``nccl`` rank
+   on the card (a train step and sharded eval through the process group);
 5. product: the eval product (``cds_mvsnet_tpu_torch.cli.test_cli.main``)
    on a synthetic DTU-layout scan written to disk (6 views of a textured
    plane at 1600x1200, 5 sources each) at the protocol of
@@ -107,6 +121,10 @@ SEED = 0
 TRAIN_B, TRAIN_H, TRAIN_W = 2, 512, 640
 TRAIN_STEPS = 3
 TRAIN_TEMPERATURE = 0.01
+
+# the train CLI's point: configs/config_dtu.json (nviews 4, SGD) in bf16 at
+# a batch of 2 on a DTU training scan of 5 views, 3 of them ref views
+TRAIN_CLI_BS, TRAIN_CLI_VIEWS, TRAIN_CLI_REFS, TRAIN_CLI_NVIEWS, DTU_LIGHTS, DTU_VAL_BS = 2, 5, (0, 1, 2), 4, 7, 2
 
 # the DTU protocol point of scripts/dtu_eval.sh
 DTU_H, DTU_W, DTU_VIEWS, DTU_SRC_H, DTU_SRC_W = 1152, 1536, 6, 1200, 1600
@@ -185,6 +203,11 @@ PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmi
 # launches of one train step: each K5 kernel once per batch element, source
 # view and stage for the sweep, and as often for the GT-depth warp
 PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
+# launches of one train CLI step (K5, nviews 4) and of one of its fp32
+# validation batches (K9 per batch element, source view and stage; K2 per
+# batch element and stage); every other kernel: 0
+PER_CLI_STEP = {name: TRAIN_CLI_BS * 3 * (TRAIN_CLI_NVIEWS - 1) * 2 for name in TRAIN_KERNEL_NAMES}
+PER_VAL_BATCH = {"warp_gather": DTU_VAL_BS * 3 * (TRAIN_CLI_NVIEWS - 1), "conv3d_bn_relu": DTU_VAL_BS * 3}
 # launches per view of the product: bf16 runs K1-K4, fp32 runs K9 and K2
 OFF_PATH = {"conv3d_front_fused": 0, "conv3d_down": 0, "warp_sim_coords": 0, "warp_sim_coords_batched": 0,
             **{name: 0 for name in PROBE_NAMES}}
@@ -342,6 +365,7 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
 
     train_kernels(torch, dev, uniform, record, train_batch)
     protocol_kernels(torch, dev, uniform, record)
+    train_val_kernels(torch, dev, uniform, record)
     torch.cuda.empty_cache()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
@@ -827,18 +851,45 @@ def protocol_stage_shapes():
 def protocol_kernels(torch, dev, uniform, record):
     """K9 in fp32 (the fp32 route) and bf16 (its TPU twin ``warp_pallas_v6``),
     and K2 in fp32, against their plain versions at the protocol point's
-    stage shapes; the coordinates are a plane sweep between two views of a
-    rig with finite epipoles. Then K4 (the bf16 route's conv01) at the
-    protocol point's input, rows tagged ``"point": "protocol"``."""
+    stage shapes. Then K4 (the bf16 route's conv01) at the protocol point's
+    input, rows tagged ``"point": "protocol"``."""
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    rig = textured_plane_batch(V=2, H=DTU_H, W=DTU_W, D=D_FULL, refine=True, tz_step=4.0, seed=SEED)
+    fp32_kernels(torch, dev, uniform, record, rig, protocol_stage_shapes(), (torch.float32, torch.bfloat16))
+    # K4 on conv01's stack of 2(V-1) images at the cascade's input (576x768)
+    dynconv_kernel(torch, uniform, tagged(record, "protocol"), 2 * (V - 1), DTU_H // 2, DTU_W // 2)
+
+
+def train_val_stage_shapes():
+    """(C, D, h, w) of each stage of the train CLI's validation batches: the
+    DTU train crop (512x640) at half resolution under refinement."""
+    h, w = TRAIN_H // 2, TRAIN_W // 2
+    return [(32, NDEPTHS[0], h // 4, w // 4), (16, NDEPTHS[1], h // 2, w // 2), (8, NDEPTHS[2], h, w)]
+
+
+def train_val_kernels(torch, dev, uniform, record):
+    """K9 and K2 in fp32, as the train CLI's validation batches run them,
+    against their plain versions at those batches' stage shapes, rows tagged
+    ``"point": "train_val"``."""
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    rig = textured_plane_batch(V=2, H=TRAIN_H, W=TRAIN_W, D=D_FULL, refine=True, tz_step=4.0, seed=SEED)
+    fp32_kernels(torch, dev, uniform, tagged(record, "train_val"), rig, train_val_stage_shapes(), (torch.float32,))
+
+
+def fp32_kernels(torch, dev, uniform, record, rig, shapes, gather_dtypes):
+    """K9 (in each of ``gather_dtypes``) and K2 in fp32 against their plain
+    versions at the stage ``shapes`` of ``rig`` (two views with finite
+    epipoles, cams under refinement); the coordinates are a plane sweep
+    from 425 mm at a DTU cam file's interval, then per-pixel windows."""
     import torch.nn.functional as F
 
     from cds_mvsnet_tpu_torch.ops import kernels as K
     from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform, sweep_coords
-    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
 
-    rig = textured_plane_batch(V=2, H=DTU_H, W=DTU_W, D=D_FULL, refine=True, tz_step=4.0, seed=SEED)
     interval = 2.5 * 1.06  # a DTU cam file's interval at --interval_scale 1.06
-    for s, (C, D, h, w) in enumerate(protocol_stage_shapes(), start=1):
+    for s, (C, D, h, w) in enumerate(shapes, start=1):
         cams = torch.as_tensor(rig["proj_matrices"][f"stage{s}"], device=dev)
         rot, trans = relative_warp_transform(cams[:, 0], cams[:, 1])
         if s == 1:
@@ -852,7 +903,8 @@ def protocol_kernels(torch, dev, uniform, record):
 
         # K9: same corners, fp32 weights and op-by-op sums as the plain
         # version, one rounding at the store: bit for bit
-        for dtype, name in ((torch.float32, "warp_gather"), (torch.bfloat16, "warp_gather_bf16")):
+        for dtype in gather_dtypes:
+            name = "warp_gather" if dtype == torch.float32 else "warp_gather_bf16"
             src = uniform((h, w, C), dtype=dtype)
             out = K.warp_gather(src, px, py)
             torch.cuda.synchronize()
@@ -901,8 +953,6 @@ def protocol_kernels(torch, dev, uniform, record):
                 "fma_floor_ms": 2 * 27 * C * 8 * D * h * w / PEAK_FP32_FLOPS * 1e3,
                 "device_ms": kernel_device_ms(torch, lambda: K.conv3d_bn_relu(vol, wk, bk), "conv3d_tf32_kernel")})
         del vol, vol16, y_k, y_p, terms, d, px, py, hyp
-    # K4 on conv01's stack of 2(V-1) images at the cascade's input (576x768)
-    dynconv_kernel(torch, uniform, tagged(record, "protocol"), 2 * (V - 1), DTU_H // 2, DTU_W // 2)
 
 
 def quantiles(torch, diff):
@@ -1340,7 +1390,102 @@ def phase_train(torch, batch, dev):
         raise RuntimeError(f"K5 launch counts {launches} != expected {want}")
     if not ok:
         raise RuntimeError("the kernel path's step disagrees with the plain bf16 path's")
-    return launches
+    return launches, secs
+
+
+def spread(xs) -> dict:
+    import statistics
+
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs), "n": len(xs)}
+
+
+def phase_train_cli(torch, train_secs) -> None:
+    """The train CLI for one epoch on a synthetic DTU training scan, then
+    ``--resume`` from its checkpoint, then the dryrun over one nccl rank
+    (see the module note)."""
+    import json
+    import math
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from cds_mvsnet_tpu_torch.cli.train_cli import main as train_main
+    from cds_mvsnet_tpu_torch.utils.synthetic import write_dtu_train_scan
+
+    repo = Path(__file__).resolve().parent
+    kernels = all_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_dtu_train_scan(tmp / "dtu", views=TRAIN_CLI_VIEWS, refs=TRAIN_CLI_REFS, seed=SEED)
+        for name in ("train.txt", "val.txt"):
+            (tmp / "dtu" / name).write_text("scan1\n")
+        raw = json.loads((repo / "configs" / "config_dtu.json").read_text())
+        raw["data"][0].update(datapath=str(tmp / "dtu"), listfile=str(tmp / "dtu" / "train.txt"))
+        raw["save_dir"] = str(tmp / "saved")
+        raw["train"]["compute_dtype"] = "bf16"
+        (tmp / "config.json").write_text(json.dumps(raw))
+        setup_s = time.perf_counter() - t0
+        argv = ["-c", str(tmp / "config.json"), "--epochs", "1", "--bs", str(TRAIN_CLI_BS), "--n_devices", "1"]
+
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_main(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps, val_batches = len(trainer.timings), sum(len(dl) for dl in trainer.val_loaders)
+        want = {name: 0 for name in kernels}
+        want.update({name: n * steps for name, n in PER_CLI_STEP.items()})
+        want.update({name: n * val_batches for name, n in PER_VAL_BATCH.items()})
+        first_step, later = trainer.timings[0], trainer.timings[1:]
+        wait, busy = sum(t["wait_s"] for t in later), sum(t["step_s"] for t in later)
+        history = trainer.history
+        finite = bool(history) and all(math.isfinite(v) for log in history for v in log.values())
+        on_card = all(p.device.type == "cuda" for p in trainer.model.parameters())
+        ckpt = Path(raw["save_dir"]) / "checkpoint-epoch1.npz"
+        written = ckpt.exists() and ckpt.with_suffix(".json").exists()
+
+        for k in kernels.values():
+            k.launches = 0
+        resumed = train_main([*argv, "--resume", str(ckpt), "--save_dir", str(tmp / "resumed")], device="cuda")
+        restored = all(torch.equal(v, resumed.model.state_dict()[k]) for k, v in trainer.model.state_dict().items())
+        resume = {"start_epoch": resumed.start_epoch, "steps": len(resumed.timings), "weights_equal": restored,
+                  "train_launches": sum(kernels[n].launches for n in TRAIN_KERNEL_NAMES)}
+        resume_ok = resume == {"start_epoch": 2, "steps": 0, "weights_equal": True, "train_launches": 0}
+        steps_expected = len(TRAIN_CLI_REFS) * DTU_LIGHTS // TRAIN_CLI_BS
+        del trainer, resumed
+        torch.cuda.empty_cache()
+
+    dry = subprocess.run([sys.executable, "-m", "cds_mvsnet_tpu_torch.tools.dryrun_multichip", "1", "--device",
+                          "cuda"], cwd=repo, capture_output=True, text=True, timeout=600)
+    dry_ok = dry.returncode == 0 and dry.stdout.strip().splitlines()[-1:] == ["dryrun_multichip ok"]
+    emit({
+        "phase": "train_cli", "config": "configs/config_dtu.json", "compute_dtype": "bf16", "bs": TRAIN_CLI_BS,
+        "nviews": TRAIN_CLI_NVIEWS, "shape": [TRAIN_CLI_BS, TRAIN_CLI_NVIEWS, 512, 640, 3], "steps": steps,
+        "steps_expected": steps_expected, "val_batches": val_batches, "setup_s": setup_s, "wall_s": wall,
+        "s_per_step_after_first": spread([t["step_s"] for t in later]),
+        "loader_wait_s_after_first": spread([t["wait_s"] for t in later]),
+        "loader_wait_share": wait / (wait + busy), "first_step": first_step,
+        "train_phase_s_per_step": spread(train_secs), "peak_mem_bytes": peak, "history": history,
+        "launches": {k: v for k, v in launches.items() if v or want[k]},
+        "launches_expected": {k: v for k, v in want.items() if v}, "checkpoint_written": written, "resume": resume,
+        "params_on_card": on_card, "dryrun_multichip": "ok" if dry_ok else dry.stdout[-500:] + dry.stderr[-2000:],
+        "ok": finite and launches == want and written and resume_ok and on_card and dry_ok
+        and steps == steps_expected,
+    })
+    if not finite:
+        raise RuntimeError(f"train_cli: a non-finite loss or validation metric: {history}")
+    if steps != steps_expected or launches != want:
+        raise RuntimeError(f"train_cli: {steps} steps, launches {launches} != expected {want}")
+    if not (written and resume_ok and on_card):
+        raise RuntimeError(f"train_cli: checkpoint {written}, resume {resume}, parameters on the card {on_card}")
+    if not dry_ok:
+        raise RuntimeError(f"train_cli: dryrun_multichip over one nccl rank failed:\n{dry.stdout[-2000:]}"
+                           f"\n{dry.stderr[-4000:]}")
 
 
 def write_dtu_scan(root, seed: int = SEED):
@@ -1807,9 +1952,11 @@ def main() -> int:
     launches.update(phase_routes(torch, batch, dev))
     del batch
     torch.cuda.empty_cache()
-    launches.update(phase_train(torch, train_batch, dev))
+    train_launches, train_secs = phase_train(torch, train_batch, dev)
+    launches.update(train_launches)
     del train_batch
     torch.cuda.empty_cache()
+    phase_train_cli(torch, train_secs)
     launches.update(phase_product(torch, dev))
     phase_stream(torch, stream_scene, dev)
     del stream_scene

@@ -930,3 +930,32 @@ def test_stream_push_runs_the_kernels(gen):
                                                     "dynconv_branches": 1}
     assert depth.shape == conf.shape == (64, 128) and np.isfinite(depth).all() and np.isfinite(conf).all()
     assert depth.min() >= 425.0 - 1e-3 and depth.max() <= 937.0 + 1e-3
+
+
+def test_train_cli_runs_the_kernels(gen, tmp_path):
+    """The train CLI on the card, one epoch in bf16 on a tiny DTU training
+    scan (3 views, one ref view: 7 samples, 3 steps of 2, no validation
+    list): K5's forward and backward launch B·3·(V−1)·2 times a step and the
+    losses are finite."""
+    import json
+    import math
+    from pathlib import Path
+
+    from cds_mvsnet_tpu_torch.cli.train_cli import main
+    from cds_mvsnet_tpu_torch.utils.synthetic import write_dtu_train_scan
+
+    write_dtu_train_scan(tmp_path / "dtu", views=3, refs=(0,))
+    (tmp_path / "dtu" / "train.txt").write_text("scan1\n")
+    raw = json.loads((Path(__file__).resolve().parents[1] / "configs" / "config_dtu.json").read_text())
+    raw["data"][0].update(datapath=str(tmp_path / "dtu"), listfile=str(tmp_path / "dtu" / "train.txt"), nviews=3)
+    raw["train"]["compute_dtype"] = "bf16"
+    raw["save_dir"] = str(tmp_path / "saved")
+    (tmp_path / "config.json").write_text(json.dumps(raw))
+    for k in K.TRAIN_KERNELS:
+        k.launches = 0
+    trainer = main(["-c", str(tmp_path / "config.json"), "--epochs", "1", "--bs", "2"])
+    steps = len(trainer.timings)
+    assert steps == 7 // 2
+    assert [k.launches for k in K.TRAIN_KERNELS] == [2 * 3 * 2 * 2 * steps] * 2
+    assert all(math.isfinite(v) for v in trainer.history[0].values())
+    assert all(p.is_cuda for p in trainer.model.parameters())
