@@ -23,7 +23,8 @@ run the hand-written kernels, as the JAX package runs its Pallas kernels on
 its device:
 - bf16 eval (``KERNEL_OPS``): K1 warps (``warp_pallas_v8`` there), K2 runs
   cost-reg conv0 (``conv3d_front``), K3 the exit (``exit_softargmin``) and
-  K4 the FeatureNet's conv01 (``sparse_s2d_conv``);
+  K4 the FeatureNet's conv01 (``sparse_s2d_conv``, the JAX default of
+  ``CDS_FEAT_SPARSE``);
 - fp32 eval (``FP32_OPS``): K9 gathers the plane sweep (``warp_pallas_v3``,
   which the JAX fp32 route runs at C ≤ 8, ``stage_net.py:427,476-484``) and
   K2 runs conv0 on the fp32 volume (``conv3d_front``, ``cost_reg.py:151-198``);
@@ -33,8 +34,10 @@ its device:
 ``kernels=False`` runs every site's plain version (``PLAIN_OPS``).
 
 A :class:`~.warp_routes.Routes` (``forward(..., routes=...)``) picks each
-stage's warp and the cost-reg front among the JAX package's routes
-(``CDS_WARP_ROUTE``, ``CDS_COSTREG_FRONT``): K6, K7 and K8 run only there.
+stage's warp, the cost-reg front and the FeatureNet convs on K4 among the
+JAX package's routes (``CDS_WARP_ROUTE``, ``CDS_COSTREG_FRONT``,
+``CDS_FEAT_SPARSE``): K6, K7 and K8 run only there, and K4 on any conv but
+conv01.
 The JAX package routes bf16 features (``stage_net.py:422-439``), so routes
 take bf16 and the kernels; ``routes=None`` is ``KERNEL_OPS`` as above.
 """
@@ -56,7 +59,7 @@ from .feature_net import FEATURE_OUT_CHANNELS, FeatureNet
 from .layers import StatsCollector, reset_parameters
 from .refinement import RefineNet
 from .stage_net import FP32_OPS, KERNEL_OPS, PLAIN_OPS, StageNet, stage_net, stage_net_train
-from .warp_routes import Routes
+from .warp_routes import DEFAULT_FEATURE_ROUTE, Routes
 
 __all__ = ["CDSMVSNet", "build_model", "feat_target", "pairwise_epipoles", "resolve_device", "strict_fp32",
            "to_tensors"]
@@ -111,7 +114,7 @@ class CDSMVSNet(nn.Module):
         """Eval: every BN on its running statistics. The kernel sites run
         ``KERNEL_OPS`` in bf16, ``FP32_OPS`` in fp32, ``PLAIN_OPS`` without
         ``kernels``; ``routes`` (bf16 with ``kernels`` only) picks each
-        stage's warp and the cost-reg front."""
+        stage's warp, the cost-reg front and the FeatureNet convs on K4."""
         if routes is not None and not (kernels and compute_dtype == torch.bfloat16):
             raise ValueError("routes take bf16 and kernels=True, as the JAX package routes bf16 features")
         if not kernels:
@@ -136,9 +139,9 @@ class CDSMVSNet(nn.Module):
         return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, warp=warp,
                              stats=stats, gt_depths=gt_depths, remat_features=remat_features)
 
-    def _features(self, stacked, epis, temperature, ops, stats, remat_features, V):
+    def _features(self, stacked, epis, temperature, ops, stats, remat_features, V, feature):
         if stats is None:
-            return self.feature(stacked, epis, temperature, conv01_branches=ops.dynconv)
+            return self.feature(stacked, epis, temperature, branches=dict.fromkeys(feature, ops.dynconv))
         # stack group kind·(V−1)+v is upstream call 2v+kind (ref_v, then src_v)
         bn = {"bn_groups": 2 * (V - 1), "bn_order": tuple(2 * v + kind for kind in (0, 1) for v in range(V - 1))}
         if not remat_features:
@@ -176,7 +179,8 @@ class CDSMVSNet(nn.Module):
         stacked = torch.cat([ref_rep, srcs]).reshape(2 * (V - 1) * B, height, width, 3)
         stacked = stacked.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
         epis = torch.cat([ref_epi.transpose(0, 1), src_epi.transpose(0, 1)]).reshape(-1, 2)
-        feats = self._features(stacked, epis, temperature, ops, stats, remat_features, V)
+        feature = DEFAULT_FEATURE_ROUTE if routes is None else routes.feature
+        feats = self._features(stacked, epis, temperature, ops, stats, remat_features, V, feature)
 
         outputs = {}
         depth = None

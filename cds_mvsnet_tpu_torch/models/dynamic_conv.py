@@ -12,24 +12,45 @@ its plain form (K4 has no backward).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from .layers import BatchNorm, conv2d
 
-__all__ = ["DynamicConv", "epipolar_direction_quadratic"]
+__all__ = ["DynamicConv", "epipolar_direction_quadratic", "epipolar_norm", "epipolar_offsets"]
 
 
-def epipolar_direction_quadratic(epipole: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """``(u², 2uv, v²)`` of the unit epipolar direction per pixel, in fp32:
-    ``epipole (N, 2)`` pixels -> ``(N, 3, H, W)``."""
+def epipolar_offsets(epipole: torch.Tensor, height: int, width: int):
+    """``(u, v)``: each pixel minus the epipole, fp32 ``(N, H, W)`` each."""
     e = epipole.float()
     xs = torch.arange(width, dtype=torch.float32, device=e.device)
     ys = torch.arange(height, dtype=torch.float32, device=e.device)
     N = e.shape[0]
     u = (xs[None, None, :] - e[:, 0, None, None]).expand(N, height, width)
     v = (ys[None, :, None] - e[:, 1, None, None]).expand(N, height, width)
-    norm = torch.sqrt(u * u + v * v)
+    return u, v
+
+
+def epipolar_norm(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``sqrt(u*u + v*v)`` in fp32, correctly rounded, the same bits in
+    every process. On the card that is ``torch.sqrt`` (IEEE ``sqrtf``). On
+    the CPU it is numpy's root (the hardware's IEEE square root): the CPU's
+    fp32 ``torch.sqrt`` is one ulp off at some elements, and in a few fresh
+    processes its first call is further off at half of them; taken in fp64
+    and rounded once, it still differs at that first call
+    (``tools/cpu_sqrt_repeat.py --root fp32``, ``--root fp64``)."""
+    n2 = u * u + v * v
+    if n2.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(n2.numpy()))
+    return torch.sqrt(n2)
+
+
+def epipolar_direction_quadratic(epipole: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """``(u², 2uv, v²)`` of the unit epipolar direction per pixel, in fp32:
+    ``epipole (N, 2)`` pixels -> ``(N, 3, H, W)``."""
+    u, v = epipolar_offsets(epipole, height, width)
+    norm = epipolar_norm(u, v)
     u = u / (norm + 1e-6)
     v = v / (norm + 1e-6)
     return torch.stack([u * u, 2 * u * v, v * v], dim=1)

@@ -16,7 +16,7 @@ from ..ops.resize import upsample2x_nearest
 from .dynamic_conv import DynamicConv
 from .layers import conv2d, instance_norm, leaky_relu
 
-__all__ = ["FeatureNet", "FEATURE_OUT_CHANNELS"]
+__all__ = ["FeatureNet", "FEATURE_OUT_CHANNELS", "k4_forms"]
 
 BASE_CHANNELS = 8
 FEATURE_OUT_CHANNELS = (BASE_CHANNELS * 4, BASE_CHANNELS * 2, BASE_CHANNELS)
@@ -35,16 +35,43 @@ DYN_KERNELS = {
 }
 
 
+def k4_forms(height: int, width: int) -> list[tuple]:
+    """Each of the 13 convs as the feature route sends it to K4, for an
+    input of ``height x width``: ``(layer, I, OA, branch kernel sizes,
+    stride, input h, input w)``; ``OA`` is ``O + 3`` for a DynamicConv
+    (conv || curvature coefficients) and ``O`` for a plain conv."""
+    b = BASE_CHANNELS
+    forms = [  # (layer, I, OA, ks, stride, input scale)
+        ("conv00", 3, b + 3, DYN_KERNELS["conv00"], 1, 1), ("conv01", b, b + 3, DYN_KERNELS["conv01"], 1, 1),
+        ("downsample1", b, 2 * b, (3,), 2, 1),
+        ("conv10", 2 * b, 2 * b + 3, DYN_KERNELS["conv10"], 1, 2),
+        ("conv11", 2 * b, 2 * b + 3, DYN_KERNELS["conv11"], 1, 2),
+        ("downsample2", 2 * b, 4 * b, (3,), 2, 2),
+        ("conv20", 4 * b, 4 * b + 3, DYN_KERNELS["conv20"], 1, 4),
+        ("conv21", 4 * b, 4 * b + 3, DYN_KERNELS["conv21"], 1, 4),
+        ("out1", 4 * b, 4 * b + 3, DYN_KERNELS["out1"], 1, 4),
+        ("inner1", 6 * b, 2 * b, (1,), 1, 2), ("out2", 2 * b, 2 * b + 3, DYN_KERNELS["out2"], 1, 2),
+        ("inner2", 3 * b, b, (1,), 1, 1), ("out3", b, b + 3, DYN_KERNELS["out3"], 1, 1),
+    ]
+    return [(name, i, oa, ks, stride, height // sc, width // sc) for name, i, oa, ks, stride, sc in forms]
+
+
 class PlainBlock(nn.Module):
-    """Bias-free conv + InstanceNorm + leaky_relu(0.1)."""
+    """Bias-free conv + InstanceNorm + leaky_relu(0.1). ``branches``: None
+    runs the conv in ``x``'s dtype; else a function of ``(x, [weight],
+    stride=)`` (K4's wrapper or its plain version) runs it as one branch."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
         super().__init__()
         self.stride = stride
         self.conv = nn.Conv2d(cin, cout, k, bias=False)
 
-    def forward(self, x):
-        return leaky_relu(instance_norm(conv2d(x, self.conv.weight, stride=self.stride)))
+    def forward(self, x, branches=None):
+        if branches is None:
+            y = conv2d(x, self.conv.weight, stride=self.stride)
+        else:
+            y = branches(x, [self.conv.weight.contiguous()], stride=self.stride)
+        return leaky_relu(instance_norm(y))
 
 
 class DynBlock(nn.Module):
@@ -77,38 +104,45 @@ class FeatureNet(nn.Module):
         self.inner2 = PlainBlock(3 * b, b, 1)
         self.out3 = DynamicConv(b, b, DYN_KERNELS["out3"], bias=True)
 
-    def forward(self, x, epipole, temperature: float, conv01_branches=None, stats=None,
-                bn_groups: int = 1, bn_order=None):
+    def forward(self, x, epipole, temperature: float, branches=None, stats=None, bn_groups: int = 1,
+                bn_order=None):
         """``x (N,3,H,W)``, ``epipole (N,2)`` -> ``{stage: (feat, nc_sum, |nc|)}``.
 
-        ``conv01_branches`` runs conv01's branches in one call (K4's wrapper
-        or its plain version); None runs one conv per branch. ``stats``
-        trains every attention BN, with statistics per group of
+        ``branches``: layer name (``warp_routes.FEATURE_LAYERS``) -> the
+        function that runs that conv's branches in one call (K4's wrapper
+        or its plain version); a layer not named runs one conv per branch.
+        ``stats`` trains every attention BN, with statistics per group of
         ``N / bn_groups`` images (``layers.BatchNorm``).
         """
+        route = (branches or {}).get
         bn = {"stats": stats, "groups": bn_groups, "order": bn_order}
-        conv00, nc00 = self.conv00(x, epipole, temperature, **bn)
-        conv01, nc01 = self.conv01(conv00, epipole, temperature, conv01_branches, **bn)
+
+        def dyn(name, x, epi):
+            return getattr(self, name)(x, epi, temperature, route(name), **bn)
+
+        def head(name, x, epi):
+            out, nc = getattr(self, name)(x, epi, temperature, route(name), **bn)
+            return torch.tanh(instance_norm(out)), nc
+
+        conv00, nc00 = dyn("conv00", x, epipole)
+        conv01, nc01 = dyn("conv01", conv00, epipole)
         epi0 = epipole / 2
-        conv10, nc10 = self.conv10(self.downsample1(conv01), epi0, temperature, **bn)
-        conv11, nc11 = self.conv11(conv10, epi0, temperature, **bn)
+        conv10, nc10 = dyn("conv10", self.downsample1(conv01, route("downsample1")), epi0)
+        conv11, nc11 = dyn("conv11", conv10, epi0)
         epi1 = epipole / 4
-        conv20, nc20 = self.conv20(self.downsample2(conv11), epi1, temperature, **bn)
-        conv21, nc21 = self.conv21(conv20, epi1, temperature, **bn)
+        conv20, nc20 = dyn("conv20", self.downsample2(conv11, route("downsample2")), epi1)
+        conv21, nc21 = dyn("conv21", conv20, epi1)
 
         outputs = {}
         intra = conv21
-        out, nc22 = self.out1(intra, epi1, temperature, **bn)
-        out = torch.tanh(instance_norm(out))
+        out, nc22 = head("out1", intra, epi1)
         outputs["stage1"] = (out, (nc20**2 + nc21**2 + nc22**2) / 3, nc22.abs())
 
-        intra = self.inner1(torch.cat([upsample2x_nearest(intra), conv11], 1))
-        out, nc12 = self.out2(intra, epi0, temperature, **bn)
-        out = torch.tanh(instance_norm(out))
+        intra = self.inner1(torch.cat([upsample2x_nearest(intra), conv11], 1), route("inner1"))
+        out, nc12 = head("out2", intra, epi0)
         outputs["stage2"] = (out, (nc10**2 + nc11**2 + nc12**2) / 3, nc12.abs())
 
-        intra = self.inner2(torch.cat([upsample2x_nearest(out), conv01], 1))
-        out, nc02 = self.out3(intra, epipole, temperature, **bn)
-        out = torch.tanh(instance_norm(out))
+        intra = self.inner2(torch.cat([upsample2x_nearest(out), conv01], 1), route("inner2"))
+        out, nc02 = head("out3", intra, epipole)
         outputs["stage3"] = (out, (nc00**2 + nc01**2 + nc02**2) / 3, nc02.abs())
         return outputs

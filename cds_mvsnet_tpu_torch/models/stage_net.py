@@ -49,7 +49,8 @@ __all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "warp_e
 @dataclass(frozen=True)
 class Ops:
     """The four kernel sites of the cascade: the wrappers or their plain
-    versions."""
+    versions. ``dynconv`` runs the FeatureNet convs of the feature route
+    (conv01 unless a ``Routes`` names others)."""
 
     warp: object
     conv0: object

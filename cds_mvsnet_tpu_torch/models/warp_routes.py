@@ -1,10 +1,12 @@
-"""Routes of the eval cascade: which kernel warps each stage and which runs
-the cost-regularisation UNet's first layers.
+"""Routes of the eval cascade: which kernel warps each stage, which runs
+the cost-regularisation UNet's first layers and which FeatureNet convs run
+on K4.
 
-Counterpart of ``cds_mvsnet_tpu/models/warp_routes.py`` and of the two
+Counterpart of ``cds_mvsnet_tpu/models/warp_routes.py`` and of the three
 environment variables the JAX package reads at trace time,
-``CDS_WARP_ROUTE`` (per stage, dispatched at ``models/stage_net.py:332-509``)
-and ``CDS_COSTREG_FRONT`` (``models/cost_reg.py:151-252``). The port reads
+``CDS_WARP_ROUTE`` (per stage, dispatched at ``models/stage_net.py:332-509``),
+``CDS_COSTREG_FRONT`` (``models/cost_reg.py:151-252``) and
+``CDS_FEAT_SPARSE`` (``models/feature_net_s2d.py:42-72``). The port reads
 no environment variable: a :class:`Routes` is an explicit argument of
 ``CDSMVSNet.forward`` (bf16 eval only, as the JAX package routes bf16
 features).
@@ -28,6 +30,15 @@ Fronts (``FRONTS``): ``pallas`` (the default: conv0 on K2), ``pallasf``
 on K2 at O=16) and ``s2d`` (conv0 on cuDNN: the JAX ``s2d`` front runs no
 Pallas kernel). The rest of the UNet runs on cuDNN in every front.
 
+Feature route (``feature``): the FeatureNet convs that run through K4
+(``dynconv_branches``), the port's counterpart of the JAX package's
+``CDS_FEAT_SPARSE`` (``models/feature_net_s2d.py:42-72``): any of the 13
+names of ``FEATURE_LAYERS``, default ``conv01`` as there. The JAX package
+routes only bf16 features, and its TPU row-alignment test (``Wp % 8``) is
+Mosaic's limit, which the port's kernel does not have.
+:func:`parse_feature_route` reads the JAX grammar: a comma list, ``all``,
+or ``off``/``none``/``0``/empty for none.
+
 The JAX route strings also carry tile suffixes (``<kd>``, ``y<ky>``,
 ``t<tr>``, ``q<slots>``, ``r``, ``g``/``o``, ``ky<N>``, ``_interp``): they set
 the TPU kernels' tile geometry or interpret mode, which the port's kernels
@@ -38,7 +49,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["Routes", "WARP_ROUTES", "FRONTS", "BATCHED_ROUTES", "parse_route"]
+__all__ = ["Routes", "WARP_ROUTES", "FRONTS", "BATCHED_ROUTES", "FEATURE_LAYERS", "DEFAULT_FEATURE_ROUTE",
+           "parse_route", "parse_feature_route"]
 
 WARP_ROUTES = {
     "v8": "warp_entropy",
@@ -56,6 +68,10 @@ WARP_ROUTES = {
 }
 BATCHED_ROUTES = ("v6sb", "v6sball")
 FRONTS = ("pallas", "pallasf", "pallasf3", "pallas2", "pallas3", "s2d")
+# the JAX package's _SPARSE_ALL and _FEAT_SPARSE_DEFAULT
+FEATURE_LAYERS = ("conv00", "conv01", "conv10", "conv11", "conv20", "conv21", "out1", "out2", "out3",
+                  "downsample1", "downsample2", "inner1", "inner2")
+DEFAULT_FEATURE_ROUTE = frozenset({"conv01"})
 
 
 def parse_route(name: str, table) -> str:
@@ -71,15 +87,37 @@ def parse_route(name: str, table) -> str:
     raise ValueError(f"unknown route {name!r}; known: {sorted(table)}")
 
 
+def parse_feature_route(value) -> frozenset:
+    """The FeatureNet layers a feature route names: a string in the JAX
+    grammar of ``CDS_FEAT_SPARSE`` (a comma list of layer names, ``all``,
+    or ``off``/``none``/``0``/empty), or an iterable of layer names. A
+    ``ValueError`` for a name that is not one of ``FEATURE_LAYERS``."""
+    if isinstance(value, str):
+        v = value.strip().lower()
+        names = [] if v in ("", "0", "off", "none") else [n.strip() for n in v.split(",")]
+    else:
+        names = list(value)
+    if "all" in names:
+        return frozenset(FEATURE_LAYERS)
+    unknown = sorted(set(names) - set(FEATURE_LAYERS))
+    if unknown:
+        raise ValueError(f"feature route: unknown layers {unknown}; known: {list(FEATURE_LAYERS)}, or 'all'")
+    return frozenset(names)
+
+
 @dataclass(frozen=True)
 class Routes:
     """``warp``: stage (1, 2, 3) -> warp route (stages not named run ``v8``);
-    ``front``: the cost-regularisation front of every stage."""
+    ``front``: the cost-regularisation front of every stage; ``feature``:
+    the FeatureNet layers on K4 (a string or names, :func:`parse_feature_route`;
+    held as a frozenset)."""
 
     warp: dict[int, str] = field(default_factory=dict)
     front: str = "pallas"
+    feature: frozenset = DEFAULT_FEATURE_ROUTE
 
     def __post_init__(self):
+        object.__setattr__(self, "feature", parse_feature_route(self.feature))
         for stage, name in self.warp.items():
             if stage not in (1, 2, 3):
                 raise ValueError(f"warp route for stage {stage}: stages are 1, 2, 3")

@@ -1,7 +1,7 @@
 """Time K9 and K4 as built from several kernel source directories, in one
 process on one card, beside their library calls.
 
-    python -m cds_mvsnet_tpu_torch.tools.time_gather_dynconv DIR [DIR ...] [--rounds N]
+    python -m cds_mvsnet_tpu_torch.tools.time_gather_dynconv DIR [DIR ...] [--rounds N] [--feature]
 
 Each ``DIR`` holds a ``gather.cu`` and a ``dynconv.cu`` (and the headers they
 include), such as the ``cds_mvsnet_tpu_torch/csrc`` of this checkout and of
@@ -13,13 +13,15 @@ stage shapes of the DTU protocol point (a plane sweep between two views of
 ``F.grid_sample`` on the NCHW source (fp32); K4 on conv01 (8 images, I = 8,
 k = 3, 5, 7, OA = 11) at the serve (864x1152), stream (480x640) and
 protocol (576x768) inputs, beside three bf16 ``F.conv2d`` calls; K4 reads
-the caller's ``(OA, I, k, k)`` weights in place, and a source whose K4 took
-them packed (commit 27ce2a7) is reached through one adapter. Rounds
-alternate the order of the sources (A B, B A, ...); a time is the median
+the caller's ``(OA, I, k, k)`` weights in place (its C entry took no
+stride before the feature route; such sources are called without it).
+Rounds alternate the order of the sources (A B, B A, ...); a time is the median
 over rounds of the mean of ``--reps`` launches between CUDA events. One JSON
 line per case and source, with the largest difference to the plain
 version and its checks (K9: bit for bit; K4: one bf16 ulp, and bit for
-bit); the card's ``nvidia-smi`` name and power limit come first. The
+bit); the card's ``nvidia-smi`` name and power limit come first. With
+``--feature``, K4 instead at each of the FeatureNet's 13 convs as the feature
+route runs them at the serve point, for the sources that take a stride. The
 harness is ``tools/_timing.py``.
 """
 
@@ -58,21 +60,28 @@ def gather(lib, src, px, py):
     return out
 
 
-def dynconv_runner(lib, x, ws):
-    """A closure that launches K4 of ``lib`` on ``(x, ws)``: through
-    ``dynconv_launch``, which reads the caller's weights in place, or, for a
-    source without it, through :func:`packed_runner_27ce2a7`."""
-    if not hasattr(lib["dynconv"], "dynconv_launch"):
-        return packed_runner_27ce2a7(lib, x, ws)
+def strided(src_dir: Path) -> bool:
+    """Whether ``DIR/dynconv.cu`` takes a stride (the feature route's K4)."""
+    return "int stride, void* stream" in (src_dir / "dynconv.cu").read_text()
+
+
+def dynconv_runner(lib, x, ws, src_dir: Path, stride: int = 1):
+    """A closure that launches K4 of ``lib`` on ``(x, ws)`` through
+    ``dynconv_launch``, which reads the caller's weights in place; a source
+    from before the feature route (no ``stride`` argument) takes the entry
+    without it."""
     N, I_, H, W = x.shape
-    kbuf = (ctypes.c_int * 4)(*KS)
+    OA = ws[0].shape[0]
+    kbuf = (ctypes.c_int * 4)(*(w.shape[-1] for w in ws))
     wbuf = (ctypes.c_void_p * 4)(*(w.data_ptr() for w in ws))
-    fn = typed(lib["dynconv"], "dynconv_launch", [P, P, P, I, I, I, I, I, I, P, P])
+    new = strided(src_dir)
+    fn = typed(lib["dynconv"], "dynconv_launch", [P, P, P, I, I, I, I, I, I, P, *([I] if new else []), P])
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
 
     def run():
-        out = torch.empty((N, len(ws) * OA, H, W), dtype=torch.bfloat16, device=x.device)
+        out = torch.empty((N, len(ws) * OA, Ho, Wo), dtype=torch.bfloat16, device=x.device)
         err = fn(P(x.data_ptr()), ctypes.cast(wbuf, P), P(out.data_ptr()), N, I_, H, W, OA, len(ws),
-                 ctypes.cast(kbuf, P), stream_ptr())
+                 ctypes.cast(kbuf, P), *([stride] if new else []), stream_ptr())
         if err:
             raise RuntimeError(f"K4: CUDA error {err}")
         return out
@@ -80,25 +89,28 @@ def dynconv_runner(lib, x, ws):
     return run
 
 
-def packed_runner_27ce2a7(lib, x, ws):
-    """The adapter to K4 as commit 27ce2a7 built it: ``dynconv_branches_launch``
-    takes the weights packed ``[c][ky][kx][o]``, branches back to back; they
-    are packed here once, outside the timed launches. It goes at the next
-    change of K4."""
-    N, I_, H, W = x.shape
-    kbuf = (ctypes.c_int * 4)(*KS)
-    fn = typed(lib["dynconv"], "dynconv_branches_launch", [P, P, P, I, I, I, I, I, I, P, P])
-    packed = torch.cat([w.permute(1, 2, 3, 0).reshape(-1) for w in ws])
+def feature_layers(libs, args, uniform, emit) -> None:
+    """``--feature``: K4 of each source that takes a stride at each of the
+    FeatureNet's 13 convs as the feature route runs them at the serve point
+    (8 images at 864x1152, ``feature_net.k4_forms``), beside the layer's
+    cuDNN bf16 ``F.conv2d`` calls; bit for bit against the plain version."""
+    from ..models.feature_net import k4_forms
 
-    def run():
-        out = torch.empty((N, len(ws) * OA, H, W), dtype=torch.bfloat16, device=x.device)
-        err = fn(P(x.data_ptr()), P(packed.data_ptr()), P(out.data_ptr()), N, I_, H, W, OA, len(ws),
-                 ctypes.cast(kbuf, P), stream_ptr())
-        if err:
-            raise RuntimeError(f"K4: CUDA error {err}")
-        return out
-
-    return run
+    dirs = [(i, d) for i, d in enumerate(args.dirs) if strided(d)]
+    for layer, I_, OA, ks, stride, h, w in k4_forms(864, 1152):
+        x = uniform((8, I_, h, w))
+        ws = [uniform((OA, I_, k, k), -(I_ * k * k) ** -0.5, (I_ * k * k) ** -0.5, torch.float32) for k in ks]
+        wsb = [w_.to(torch.bfloat16) for w_ in ws]
+        want = K.dynconv_branches_plain(x, ws, stride)
+        runs = {i: dynconv_runner(libs[i], x, ws, d, stride) for i, d in dirs}
+        equal = {i: torch.equal(runs[i](), want) for i, _ in dirs}
+        runs["conv2d"] = lambda: [F.conv2d(x, w_, stride=stride, padding=w_.shape[-1] // 2) for w_ in wsb]
+        med = medians(runs, args.rounds, args.reps)
+        for i, d in dirs:
+            emit({"kernel": "k4", "point": "feature", "layer": layer, "dir": str(d), "ms": med[i],
+                  "conv2d_ms": med["conv2d"], "bit_for_bit": equal[i]})
+        del x, want, runs
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -106,6 +118,8 @@ def main(argv=None) -> int:
     ap.add_argument("dirs", nargs="+", type=Path)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--feature", action="store_true",
+                    help="K4 at the FeatureNet's 13 convs at the serve point instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_gather_dynconv: needs the card", file=sys.stderr)
@@ -121,6 +135,10 @@ def main(argv=None) -> int:
     def emit(row):
         print(json.dumps(row), flush=True)
 
+    if args.feature:
+        with tempfile.TemporaryDirectory() as tmp:
+            feature_layers(build(args.dirs, ("dynconv",), Path(tmp)), args, uniform, emit)
+        return 0
     rig = textured_plane_batch(V=2, H=DTU_H, W=DTU_W, D=D_FULL, refine=True, tz_step=4.0, seed=0)
     interval = 2.5 * 1.06
     with tempfile.TemporaryDirectory() as tmp:
@@ -161,7 +179,7 @@ def main(argv=None) -> int:
             want = K.dynconv_branches_plain(x, ws).float()
             runs, checks = {}, {}
             for i, lib in enumerate(libs):
-                runs[i] = dynconv_runner(lib, x, ws)
+                runs[i] = dynconv_runner(lib, x, ws, args.dirs[i])
                 d = (runs[i]().float() - want).abs()
                 checks[i] = {"max_abs_err": float(d.max()), "one_ulp": bool((d <= 2 ** -7 * want.abs() + 1e-3).all()),
                              "bit_for_bit": bool((d == 0).all())}

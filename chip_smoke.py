@@ -17,7 +17,10 @@ Phases, one JSON line each:
    fp32 FMA floor apart;
    K9 (fp32 and bf16, bit for bit) and K2 in fp32 at the three stage shapes
    of the DTU protocol point (the cascade at 576x768 under refinement), and
-   K4 on that point's conv01 input; K9 and K2 in fp32 again at the stage
+   K4 on that point's conv01 input; K4 at each of the FeatureNet's 13
+   convs as the feature route (R5) runs them at the serve point (rows
+   tagged ``"point": "feature"`` with the layer, beside the layer's cuDNN
+   bf16 calls); K9 and K2 in fp32 again at the stage
    shapes of the train CLI's validation batches (the 512x640 DTU train crop
    at 256x320 under refinement; rows tagged ``"point": "train_val"``);
    K5's forward and backward are checked the same way at the three stage
@@ -44,12 +47,15 @@ Phases, one JSON line each:
    plain fp32 path (the gate);
    one more request runs under ``torch.profiler`` and the device time is
    summed by kernel name;
-   routes: four bf16 requests under the JAX package's warp routes and
-   cost-reg fronts (``models/warp_routes.py``: R1-R4 of ``ROUTED``), each
-   with its launch counts checked exactly, its stage-3 depth and
-   confidence held to the serve gate against the default route on the same
-   weights and batch, and its latency beside the default's; one R1 request
-   runs under ``torch.profiler``;
+   routes: five bf16 requests under the JAX package's warp routes,
+   cost-reg fronts and feature route (``models/warp_routes.py``: R1-R5 of
+   ``ROUTED``; R5 runs all 13 FeatureNet convs on K4), each with its launch
+   counts checked exactly, its stage-3 depth and confidence held to the
+   serve gate against the default route on the same weights and batch, and
+   its latency beside the default's; R5 also bit for bit against its plain
+   twin and, where the serve gate misses, by the JAX route's FeatureNet
+   criterion, with each FeatureNet block's device time beside the default
+   route's; one R1 and one R5 request run under ``torch.profiler``;
 4. train: the train step at the JAX package's train bench point (512x640
    DTU crops, B=2, V=5, D=192, ndepths 48/32/8, refinement, bf16, FeatureNet
    recomputed in the backward, SGD lr 0.01 and weight decay 0.01,
@@ -240,7 +246,12 @@ ROUTED = {
             "dynconv_branches": 1}),
     "R4": ({1: "v6", 2: "v6", 3: "v6"}, "pallasf",
            {"conv3d_front_fused": 3, "warp_gather": 3 * (V - 1), "exit_softargmin": 3, "dynconv_branches": 1}),
+    # the default warp routes and front with every FeatureNet conv on K4
+    # (ROUTE_FEATURE): K4 once a conv, every other count the default's
+    "R5": ({}, "pallas", {**PER_REQUEST, "dynconv_branches": 13}),
 }
+# the feature route of each routed request (the others: the default conv01)
+ROUTE_FEATURE = {"R5": "all"}
 # which routed request's counts each route-only kernel reports in the
 # kernels line (conv3d_bn_relu_o16: R1, whose K2 launches are all conv2's)
 ROUTE_LAUNCHES = {"conv3d_front_fused": ("R1", "conv3d_front_fused"), "conv3d_bn_relu_o16": ("R1", "conv3d_bn_relu"),
@@ -284,6 +295,7 @@ def emit_bound_halves(row: dict, name: str) -> None:
     the bytes over the memory rate and the fp32 FMA floor (operations over
     the fp32 rate); the row's ``bound_ms`` is the larger."""
     emit({"phase": "bound_halves", "kernel": name, "stage": row["stage"], "point": row.get("point", "serve"),
+          **({"layer": row["layer"]} if "layer" in row else {}),
           "bytes_bound_ms": row["bytes"] / PEAK_BYTES_PER_S * 1e3, "fma_floor_ms": row["flops"] / PEAK_FP32_FLOPS * 1e3})
 
 
@@ -360,6 +372,7 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
 
     # K4: conv01 over the stack of 2(V-1) images, branches k = 3, 5, 7
     dynconv_kernel(torch, uniform, record, 2 * (V - 1), H, W)
+    feature_kernels(torch, uniform, tagged(record, "feature"))
     stream_kernels(torch, dev, uniform, tagged(record, "stream"), stream_scene)
     probe_kernels(torch, dev, record)
 
@@ -594,6 +607,47 @@ def dynconv_kernel(torch, uniform, record, N, H, W):
             "device_ms": kernel_device_ms(torch, lambda: K.dynconv_branches(x, ws), "dynconv_kernel", reps=5)})
     emit_bound_halves(row, "dynconv_branches")
     del x, o_k, o_p, d
+
+
+def feature_kernels(torch, uniform, record):
+    """K4 at each of the FeatureNet's 13 convs as the feature route runs
+    them over the stack of 2(V-1) images at the serve point
+    (``feature_net.k4_forms``), against its plain version bit for bit,
+    beside the same layer's cuDNN bf16 ``F.conv2d`` calls (one a branch, the
+    library column), each also by device time; stage 3, 2, 1 = output at
+    1/1, 1/2, 1/4 of 864x1152."""
+    import torch.nn.functional as F
+
+    from cds_mvsnet_tpu_torch.models.feature_net import k4_forms
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    N = 2 * (V - 1)
+    for layer, I_, OA, ks, stride, h, w in k4_forms(H, W):
+        x = uniform((N, I_, h, w))
+        ws = [uniform((OA, I_, k, k), -(I_ * k * k) ** -0.5, (I_ * k * k) ** -0.5, torch.float32) for k in ks]
+        o_k = K.dynconv_branches(x, ws, stride=stride)
+        torch.cuda.synchronize()
+        o_p = K.dynconv_branches_plain(x, ws, stride)
+        d = (o_k.float() - o_p.float()).abs()
+        wsb = [w_.to(torch.bfloat16) for w_ in ws]
+
+        def library():
+            return [F.conv2d(x, w_, stride=stride, padding=w_.shape[-1] // 2) for w_ in wsb]
+
+        Ho, Wo = o_k.shape[-2:]
+        row = record("dynconv_branches", {H: 3, H // 2: 2, H // 4: 1}[h // stride], float(d.max()),
+                     "bit for bit (torch.equal)", torch.equal(o_k, o_p),
+                     timed(torch, lambda: K.dynconv_branches(x, ws, stride=stride), 5),
+                     timed(torch, lambda: K.dynconv_branches_plain(x, ws, stride), 3),
+                     timed(torch, library, 5),
+                     x.numel() * 2 + sum(w_.numel() * 4 for w_ in ws) + o_k.numel() * 2,
+                     2 * N * Ho * Wo * OA * I_ * sum(k * k for k in ks), PEAK_FP32_FLOPS,
+                     {"layer": layer, "form": {"I": I_, "OA": OA, "k": list(ks), "stride": stride, "in": [N, h, w]},
+                      "exact_frac": float((d == 0).float().mean()),
+                      "device_ms": call_device_ms(torch, lambda: K.dynconv_branches(x, ws, stride=stride), reps=5),
+                      "library_device_ms": call_device_ms(torch, library, reps=5)})
+        emit_bound_halves(row, "dynconv_branches")
+        del x, ws, wsb, o_k, o_p, d
 
 
 def tagged(record, point: str):
@@ -1187,11 +1241,14 @@ def phase_profile(torch, model, request):
 
 
 def phase_routes(torch, batch, dev):
-    """R1-R4 of ``ROUTED`` at the serve point: each after a warm-up with
+    """R1-R5 of ``ROUTED`` at the serve point: each after a warm-up with
     every launch count set to 0, REQUESTS timed requests whose launches must
     be exactly the route's; stage 3 held to the serve gate against the
-    default route's request (same weights, batch and dtype); one R1 request
-    profiled. Returns the route-only kernels' launches (``ROUTE_LAUNCHES``)."""
+    default route's request (same weights, batch and dtype), R5 also to its
+    plain twin (:func:`feature_route_checks`); one R1 and one R5 request
+    profiled.
+    Returns the route-only kernels' launches (``ROUTE_LAUNCHES``) and R5's
+    K4 launches a request."""
     from cds_mvsnet_tpu_torch.config import ModelConfig
     from cds_mvsnet_tpu_torch.models import Routes, build_model
 
@@ -1221,7 +1278,8 @@ def phase_routes(torch, batch, dev):
             "conf_p99_max": 0.05}
     rows, counts, problems = {}, {}, []
     for tag, (warp, front, per_request) in ROUTED.items():
-        s3, lat, launches = timed_requests(Routes(warp, front))
+        routes = Routes(warp, front, feature=ROUTE_FEATURE.get(tag, "conv01"))
+        s3, lat, launches = timed_requests(routes)
         want = {name: per_request.get(name, 0) * REQUESTS for name in kernels}
         cmp = {}
         for key in ("depth", "photometric_confidence"):
@@ -1231,19 +1289,93 @@ def phase_routes(torch, batch, dev):
         in_gate = (cmp["depth_median"] <= gate["depth_median_max"] and cmp["depth_p99"] <= gate["depth_p99_max"]
                    and cmp["photometric_confidence_median"] <= gate["conf_median_max"]
                    and cmp["photometric_confidence_p99"] <= gate["conf_p99_max"])
-        rows[tag] = {"warp": warp, "front": front, "latency_ms_per_map": lat, "launches": launches,
-                     "launches_expected": want, "compare_to_default": cmp,
-                     "ok": launches == want and finite and in_gate}
+        rows[tag] = {"warp": warp, "front": front, "feature": sorted(routes.feature), "latency_ms_per_map": lat,
+                     "launches": launches, "launches_expected": want, "compare_to_default": cmp,
+                     "serve_gate": in_gate, "ok": launches == want and finite and in_gate}
+        if tag in ROUTE_FEATURE:
+            extra = feature_route_checks(torch, model, args, routes, in_gate)
+            rows[tag].update(extra, ok=launches == want and finite and extra["feature_ok"])
         counts[tag] = launches
         if not rows[tag]["ok"]:
             problems.append(f"{tag}: launches {launches == want}, finite {finite}, gate {in_gate}")
     emit({"phase": "routes", "requests": REQUESTS, "depth_interval_mm": interval,
           "default_latency_ms_per_map": ref_lat, "routed": rows, "gate": gate, "ok": not problems})
-    r1 = Routes(*ROUTED["R1"][:2])
-    emit({"phase": "routes_profile", "route": "R1", **device_profile(torch, lambda: request(r1))})
+    for tag in ("R1", "R5"):
+        r = Routes(*ROUTED[tag][:2], feature=ROUTE_FEATURE.get(tag, "conv01"))
+        emit({"phase": "routes_profile", "route": tag, **device_profile(torch, lambda: request(r))})
     if problems:
         raise RuntimeError(f"routes phase failed: {problems}")
-    return {name: counts[tag][kname] for name, (tag, kname) in ROUTE_LAUNCHES.items()}
+    return ({name: counts[tag][kname] for name, (tag, kname) in ROUTE_LAUNCHES.items()},
+            counts["R5"]["dynconv_branches"] // REQUESTS)
+
+
+def feature_route_checks(torch, model, args, routes, in_serve_gate: bool) -> dict:
+    """R5's own gate. Its request bit for bit against the same request with
+    the routed convs on K4's plain version (a forward pre-hook on the
+    FeatureNet swaps the functions), FeatureNet outputs and stage 3 alike.
+    Then the serve gate against the default route; where the branch
+    softmax at temperature 0.001 makes it miss, the JAX package's criterion
+    for this route (``tests/test_feature_net_s2d.py:42-57``, temperature
+    0.5) on the request's FeatureNet input: against the fp32 FeatureNet,
+    p99.5 and max error at most twice the default bf16 route's (floors 2e-2
+    and 5e-2).
+    Also each FeatureNet block's device time in one request of this route
+    and of the default route (:func:`layer_times`)."""
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    def request(r):
+        model(*args, compute_dtype=torch.bfloat16, routes=r)
+        torch.cuda.synchronize()
+
+    def feature_layers_ms(r):
+        return {k: v for k, v in layer_times(torch, model, lambda: request(r)).items() if k.startswith("feature.")}
+
+    seen = {}
+
+    def keep(mod, a, kw, out):
+        seen["in"], seen["out"] = (a, kw), out
+
+    def to_plain(mod, a, kw):
+        return a, {**kw, "branches": dict.fromkeys(kw["branches"], K.dynconv_branches_plain)}
+
+    def run(*hooks):
+        handles = [model.feature.register_forward_pre_hook(h, with_kwargs=True) for h in hooks[:-1]]
+        handles.append(model.feature.register_forward_hook(hooks[-1], with_kwargs=True))
+        try:
+            out = model(*args, compute_dtype=torch.bfloat16, routes=routes)["stage3"]
+        finally:
+            for h in handles:
+                h.remove()
+        torch.cuda.synchronize()
+        return out, seen.pop("out"), seen.pop("in")
+
+    s3, feats, (f_args, f_kw) = run(keep)
+    s3_p, feats_p, _ = run(to_plain, keep)
+    feats_equal = all(torch.equal(a, b) for st in feats for a, b in zip(feats[st], feats_p[st]))
+    request_equal = all(torch.equal(s3[k], s3_p[k]) for k in ("depth", "photometric_confidence"))
+    x, epi = f_args[:2]
+    del feats, feats_p
+    with torch.no_grad():  # at the JAX test's temperature: at 0.001 both bf16 routes flip branches wholesale
+        truth = model.feature(x.float(), epi, 0.5, branches={})
+        default = model.feature(x, epi, 0.5, branches={"conv01": K.dynconv_branches})
+        routed = model.feature(x, epi, 0.5, branches=f_kw["branches"])
+    criterion, crit_ok = {}, True
+    for st in truth:
+        for i, name in enumerate(("feat", "nc_sum", "nc_abs")):
+            e = [(t.float() - truth[st][i]).abs() for t in (default[st][i], routed[st][i])]
+            q = [float(torch.quantile(t.flatten()[:: max(1, t.numel() // 4_000_000)], 0.995)) for t in e]
+            m = [float(t.max()) for t in e]
+            ok = q[1] <= max(2 * q[0], 2e-2) and m[1] <= max(2 * m[0], 5e-2)
+            crit_ok &= ok
+            criterion[f"{st}/{name}"] = {"p995_default": q[0], "p995_routed": q[1], "max_default": m[0],
+                                         "max_routed": m[1], "ok": ok}
+    del truth, default, routed
+    feature_ok = feats_equal and request_equal and (in_serve_gate or crit_ok)
+    return {"plain_twin": {"featurenet_bit_for_bit": feats_equal, "request_bit_for_bit": request_equal},
+            "featurenet_criterion": criterion, "featurenet_criterion_ok": crit_ok,
+            "gate_used": "serve gate" if in_serve_gate else "JAX route criterion on the FeatureNet",
+            "layers_ms": feature_layers_ms(routes), "default_layers_ms": feature_layers_ms(None),
+            "feature_ok": feature_ok}
 
 
 def rel_l2(torch, got, want) -> float:
@@ -1949,7 +2081,8 @@ def main() -> int:
     results = phase_kernels(torch, batch, train_batch, stream_scene, dev)
     launches = phase_probes(torch)
     launches.update(phase_serve(torch, batch, dev))
-    launches.update(phase_routes(torch, batch, dev))
+    route_launches, feature_route_launches = phase_routes(torch, batch, dev)
+    launches.update(route_launches)
     del batch
     torch.cuda.empty_cache()
     train_launches, train_secs = phase_train(torch, train_batch, dev)
@@ -1993,11 +2126,17 @@ def main() -> int:
         })
         for point in sorted({r.get("point") for r in results[name]} - points):
             kernels[-1][f"{point}_per_stage"] = [
-                {k: r[k] for k in ("stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "device_ms")
-                 if k in r}
+                {k: r[k] for k in ("layer", "stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                                   "device_ms", "library_device_ms") if k in r}
                 for r in results[name] if r.get("point") == point]
         if name in PROBE_NAMES:  # the probes run only in their tools
             kernels[-1]["launches_per_map"] = 0
+        if name == "dynconv_branches":  # every FeatureNet conv on K4 (route R5)
+            feat = [r for r in results[name] if r.get("point") == "feature"]
+            kernels[-1]["feature_route"] = {
+                "launches_per_map": feature_route_launches,
+                **{key: None if any(r[key] is None for r in feat) else sum(r[key] for r in feat)
+                   for key in ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "plain_ms")}}
         if name == "warp_gather":  # the bf16 instantiation, off the main path
             kernels[-1]["bf16_per_stage"] = [
                 {k: r[k] for k in ("stage", "ms", "plain_ms", "bound_ms", "max_abs_err", "device_ms")}

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from cds_mvsnet_tpu_torch.models.feature_net import k4_forms
 from cds_mvsnet_tpu_torch.ops import kernels as K
 from cds_mvsnet_tpu_torch.ops.kernels.regress import MAX_D
 
@@ -294,6 +295,106 @@ def test_dynconv_branches_cancellation(gen, I_, OA, ks):
     assert torch.equal(K.dynconv_branches(x, ws), want)
     bf16_only = K.dynconv_branches_plain(x, [w.to(torch.bfloat16).float() for w in ws])
     assert not within_one_ulp(bf16_only, want)
+
+
+# the FeatureNet's convs as the feature route sends them to K4, layers of
+# one form named once: (I, OA, branch kernel sizes, stride)
+FEATURE_FORMS = {name: form[:4] for name, *form in k4_forms(1, 1) if name not in ("conv11", "conv21", "out1")}
+
+
+@pytest.mark.parametrize("shape", [(13, 37), (9, 131), (21, 70), (22, 64)])
+@pytest.mark.parametrize("layer", list(FEATURE_FORMS))
+def test_dynconv_feature_forms_on_ragged_shapes(gen, layer, shape):
+    """K4 at every form of the feature route (k = 11 with I = 3, stride 2,
+    one-branch 1x1 convs at I = 48 and 24, OA = 8 and 16 and 32) on shapes
+    its blocks do not divide, odd H and W at stride 2 among them, and on the
+    16-byte staging (W % 8 == 0). Bit for bit, one launch."""
+    I_, OA, ks, stride = FEATURE_FORMS[layer]
+    x, ws = dynconv_rig(gen, 2, I_, OA, ks, shape)
+    before = K.dynconv_branches.launches
+    got = K.dynconv_branches(x, ws, stride=stride)
+    torch.cuda.synchronize()
+    assert K.dynconv_branches.launches == before + 1
+    assert got.shape == (2, len(ks) * OA, (shape[0] - 1) // stride + 1, (shape[1] - 1) // stride + 1)
+    assert torch.equal(got, K.dynconv_branches_plain(x, ws, stride))
+
+
+@pytest.mark.parametrize("shape", [(5, 3), (7, 1), (11, 40), (6, 44), (9, 37), (1, 2)])
+@pytest.mark.parametrize("layer", ["conv00", "downsample1", "downsample2", "inner1", "inner2"])
+def test_dynconv_feature_forms_register_tile_tails(gen, layer, shape):
+    """N = 1 where the 4-pixel register tile's tails run (W < 4, W = 1, W %
+    8 == 0 off the block, odd W) at the new forms; at stride 2 the outputs
+    are 3x2, 4x1, 6x20, 3x22, 5x19 and 1x1. Bit for bit."""
+    I_, OA, ks, stride = FEATURE_FORMS[layer]
+    x, ws = dynconv_rig(gen, 1, I_, OA, ks, shape)
+    got = K.dynconv_branches(x, ws, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.dynconv_branches_plain(x, ws, stride))
+
+
+@pytest.mark.parametrize("layer", ["conv00", "downsample2", "inner1", "inner2", "out3"])
+def test_dynconv_feature_forms_cancellation(gen, layer):
+    """The cancellation case at the new forms: weights at 4x the usual bound,
+    where bf16 weights alone miss one ulp; K4 still rounds as the plain
+    version does."""
+    I_, OA, ks, stride = FEATURE_FORMS[layer]
+    x, ws = dynconv_rig(gen, 3, I_, OA, ks, (21, 70), scale=4.0)
+    want = K.dynconv_branches_plain(x, ws, stride)
+    assert torch.equal(K.dynconv_branches(x, ws, stride=stride), want)
+    bf16_only = K.dynconv_branches_plain(x, [w.to(torch.bfloat16).float() for w in ws], stride)
+    assert not within_one_ulp(bf16_only, want)
+
+
+def test_feature_route_all_runs_k4_on_every_conv(gen):
+    """``Routes(feature="all")``: 13 K4 launches a forward at B = 1 (every
+    other launch as the default route's), and the FeatureNet's outputs bit
+    for bit those of the same convs on K4's plain version."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model, to_tensors
+    from cds_mvsnet_tpu_torch.models.warp_routes import FEATURE_LAYERS
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    model = build_model(ModelConfig(refine=False, ndepths=(16, 8, 8)), seed=0, device="cuda")
+    b = to_tensors(textured_plane_batch(V=3, H=64, W=128, D=32), "cuda")
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    kernels = (*K.KERNELS, *K.ROUTE_KERNELS)
+    counts = []
+    for feature in ("conv01", "all"):
+        before = [k.launches for k in kernels]
+        out = model(*args, compute_dtype=torch.bfloat16, routes=Routes(feature=feature))
+        torch.cuda.synchronize()
+        counts.append({k.__name__: k.launches - c for k, c in zip(kernels, before) if k.launches != c})
+        assert bool(torch.isfinite(out["stage3"]["depth"]).all())
+    assert counts[0]["dynconv_branches"] == 1 and counts[1] == {**counts[0], "dynconv_branches": 13}
+
+    x = uniform(gen, (4, 3, 64, 128))
+    epi = torch.tensor([[30.0, 40.0], [-500.0, 90.0], [2000.0, -300.0], [64.0, 32.0]], device="cuda")
+    with torch.no_grad():
+        got = model.feature(x, epi, 0.001, branches=dict.fromkeys(FEATURE_LAYERS, K.dynconv_branches))
+        want = model.feature(x, epi, 0.001, branches=dict.fromkeys(FEATURE_LAYERS, K.dynconv_branches_plain))
+    for s in want:
+        for a, w in zip(got[s], want[s]):
+            assert torch.equal(a, w), s
+
+
+@pytest.mark.parametrize("shape", [(864, 1152), (432, 576), (216, 288)])
+def test_epipolar_norm_on_the_card_is_the_fp32_root(gen, shape):
+    """The repaired root equals the fp32 ``torch.sqrt`` form the port took
+    before, bit for bit, at the serve point's three FeatureNet scales, and
+    is correctly rounded (the fp64 root rounded once)."""
+    from cds_mvsnet_tpu_torch.models.dynamic_conv import (epipolar_direction_quadratic, epipolar_norm,
+                                                          epipolar_offsets)
+
+    H, W = shape
+    epi = (torch.rand((8, 2), generator=gen, device="cuda") * 6000.0 - 2000.0) * (H / 864)
+    epi[:2] = torch.tensor([[W / 3 + 0.25, H / 2 - 0.5], [W - 1.0, 0.0]], device="cuda")  # in frame, on a pixel
+    u, v = epipolar_offsets(epi, H, W)
+    root = epipolar_norm(u, v)
+    old = torch.sqrt(u * u + v * v)
+    assert torch.equal(root, old)
+    assert torch.equal(root, torch.sqrt((u * u + v * v).double()).float())
+    un, vn = u / (old + 1e-6), v / (old + 1e-6)
+    assert torch.equal(epipolar_direction_quadratic(epi, H, W), torch.stack([un * un, 2 * un * vn, vn * vn], 1))
 
 
 RT = (1.01, 0.02, -1.5, -0.015, 0.99, 2.0, 1e-4, -2e-4, 1.0, 8.0, -4.0, 0.05)

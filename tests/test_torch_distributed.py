@@ -13,19 +13,20 @@ timeout, a child's failure re-raised with its output).
     own B = 1 forward, at the JAX package's tolerance.
 (d) The ranks' loaders (``process_local_batch_slice``) together cover the
     one-process batch order.
-(e) ``tools/dryrun_multichip.py`` at 2 ranks prints ``dryrun_multichip ok``.
-A rank that fails, or ranks past their time, fail the run.
+(e) ``tools/dryrun_multichip.py``'s rank body (a train step, then eval
+    sharded over 3 views) passes at 2 ranks.
+The same two processes run (a) to (e), one after another: each costs about
+a second once a process is warm, and its first train step several. A rank
+that fails, or ranks past their time, fail the run; ``spawn`` itself, which
+the tool's ``main`` calls, is tested on its own.
 
-Every process of (a) and (b) takes the square root of
-``epipolar_direction_quadratic`` from numpy (``exact_quadratic``), which is
-correctly rounded. The CPU's fp32 ``torch.sqrt`` there is not, nor does it
-repeat: ``tools/cpu_sqrt_repeat.py`` feeds it the
-same input in fresh processes and finds 28 of its 4096 roots one ulp off the
-correctly rounded ones in most processes, and in some (about one in eight)
-2047 more than one ulp off at the first call, a second call on the same
-input giving the usual roots. This step turns such differences into a
-change of the update of 1.4e-3 to 5.9e-2 relative L2. Pinned, the processes
-differ by the split of the step alone.
+Every process of (a) and (b) runs the shipped
+``epipolar_direction_quadratic``, whose root is correctly rounded to fp32
+(taken in fp64, rounded once) and so the same in every process; the CPU's
+fp32 ``torch.sqrt`` was neither (``tools/cpu_sqrt_repeat.py --root fp32``),
+and this step turned its differences into a change of the update of 1.4e-3
+to 5.9e-2 relative L2. So the processes differ by the split of the step
+alone.
 """
 
 from __future__ import annotations
@@ -68,20 +69,6 @@ GROUPS = {"feature": "FeatureNet", "stage_net": "vis heads", "cost_regularizatio
           "refine_network": "refinement"}
 
 
-def exact_quadratic(epipole, height, width):
-    """``epipolar_direction_quadratic`` with numpy's correctly rounded root."""
-    e = epipole.float()
-    xs = torch.arange(width, dtype=torch.float32)
-    ys = torch.arange(height, dtype=torch.float32)
-    N = e.shape[0]
-    u = (xs[None, None, :] - e[:, 0, None, None]).expand(N, height, width)
-    v = (ys[None, :, None] - e[:, 1, None, None]).expand(N, height, width)
-    norm = torch.from_numpy(np.sqrt((u * u + v * v).numpy()))
-    u = u / (norm + 1e-6)
-    v = v / (norm + 1e-6)
-    return torch.stack([u * u, 2 * u * v, v * v], dim=1)
-
-
 def train_batch() -> dict:
     """``synthetic_batch`` at the train-step tests' smallest shape, B = 2;
     the second half's images darkened and most of its masks cut."""
@@ -111,14 +98,16 @@ CHILD = textwrap.dedent('''
     import torch
     import torch.distributed as dist
     torch.set_num_threads(2)
-    rank, out, init = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-    from cds_mvsnet_tpu_torch.models import dynamic_conv, layers
+    rank, out, init, init_dryrun = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+    from cds_mvsnet_tpu_torch.models import layers
     from cds_mvsnet_tpu_torch.parallel import data_mesh, initialize_distributed, make_sharded_eval, shard_batch
     from cds_mvsnet_tpu_torch.parallel import process_local_batch_slice
     from cds_mvsnet_tpu_torch.training import train_step
+    from cds_mvsnet_tpu_torch.tools import dryrun_multichip
     import test_torch_distributed as T
 
-    dynamic_conv.epipolar_direction_quadratic = T.exact_quadratic
+    # (e): the tool's rank body, with a process group of its own
+    dryrun_multichip.rank_main(rank, T.WORLD, "cpu", init_dryrun)
     group = initialize_distributed("gloo", init, T.WORLD, rank)
     local = T.to_tensors(shard_batch(T.train_batch(), group), data_mesh(group, "cpu"))
     results = {{}}
@@ -147,6 +136,7 @@ CHILD = textwrap.dedent('''
                           shard=process_local_batch_slice(4, group))
     for e in range(2):
         results[f"loader/{{e}}"] = np.array([b["host"]["i"].ravel() for b in loader])
+    results["dryrun/ok"] = np.array(True)
     np.savez(out, **results)
     dist.barrier()
     dist.destroy_process_group()
@@ -196,19 +186,14 @@ def run_ranks(tmp_path: Path, script: str, argv=(), timeout: float = TIMEOUT_S) 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ranks")
-    run_ranks(tmp, CHILD.format(repo=str(REPO), tests=str(REPO / "tests")))
+    run_ranks(tmp, CHILD.format(repo=str(REPO), tests=str(REPO / "tests")),
+              argv=(f"file://{tmp / 'rendezvous_dryrun'}",))
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
 
 
 @pytest.fixture(scope="module")
 def one_process():
-    from cds_mvsnet_tpu_torch.models import dynamic_conv
-
-    orig, dynamic_conv.epipolar_direction_quadratic = dynamic_conv.epipolar_direction_quadratic, exact_quadratic
-    try:
-        return run_step(to_tensors(train_batch(), "cpu"))
-    finally:
-        dynamic_conv.epipolar_direction_quadratic = orig
+    return run_step(to_tensors(train_batch(), "cpu"))
 
 
 def compare(got: dict, want: dict, prefix: str) -> dict:
@@ -225,6 +210,31 @@ def compare(got: dict, want: dict, prefix: str) -> dict:
 
     groups = {g: rel_l2([k for k in updates if k.split("/")[1].startswith(g)]) for g in GROUPS}
     return {"loss": loss_rel, "stats": stat_rel, "update": rel_l2(updates), **groups}
+
+
+def test_epipolar_root_is_numpys_correctly_rounded_root():
+    """The root inside ``epipolar_direction_quadratic`` at the 2-rank test's
+    shape (the refined cascade's 32x32 FeatureNet input of the 64x64
+    ``synthetic_batch``, its epipoles, at the FeatureNet's three scales)
+    equals numpy's fp32 root bit for bit, as does the function's output the
+    same formula on numpy's root."""
+    from cds_mvsnet_tpu_torch.models.cds_mvsnet import pairwise_epipoles
+    from cds_mvsnet_tpu_torch.models.dynamic_conv import (epipolar_direction_quadratic, epipolar_norm,
+                                                          epipolar_offsets)
+
+    b = to_tensors(train_batch(), "cpu")
+    cams = b["proj_matrices"]["stage3"].float()
+    ref_epi, src_epi = pairwise_epipoles(cams[:, 0], cams[:, 1:])
+    epis = torch.cat([ref_epi.transpose(0, 1), src_epi.transpose(0, 1)]).reshape(-1, 2)
+    for scale in (1, 2, 4):
+        h = w = 32 // scale
+        u, v = epipolar_offsets(epis / scale, h, w)
+        root = epipolar_norm(u, v)
+        want = np.sqrt((u * u + v * v).numpy())
+        assert root.dtype == torch.float32 and np.array_equal(root.numpy().view(np.int32), want.view(np.int32))
+        un, vn = u / (torch.from_numpy(want) + 1e-6), v / (torch.from_numpy(want) + 1e-6)
+        assert torch.equal(epipolar_direction_quadratic(epis / scale, h, w),
+                           torch.stack([un * un, 2 * un * vn, vn * vn], dim=1))
 
 
 def test_the_halves_differ():
@@ -310,11 +320,13 @@ def test_process_local_batch_slice_without_a_group():
     assert process_local_batch_slice(8) == (0, 8)
 
 
-def test_dryrun_multichip_prints_ok():
-    out = subprocess.run([sys.executable, "-m", "cds_mvsnet_tpu_torch.tools.dryrun_multichip", str(WORLD),
-                          "--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=TIMEOUT_S)
-    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
-    assert out.stdout.strip().splitlines()[-1] == "dryrun_multichip ok"
+def test_dryrun_multichip_prints_ok(ranks):
+    """(e): ``dryrun_multichip.rank_main`` (a finite-loss step over the
+    group, sharded eval on world + 1 views against per-view forwards) ran
+    on both ranks of ``ranks`` before their own checks; its ``main`` adds
+    the ``spawn`` of the ranks and the ``dryrun_multichip ok`` line
+    (``chip_smoke.py`` runs it on the card)."""
+    assert [bool(r["dryrun/ok"]) for r in ranks] == [True] * WORLD
 
 
 def failing_rank(rank, world, device, init_method):

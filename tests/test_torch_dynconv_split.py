@@ -132,3 +132,23 @@ def test_conv01_tile_shares_an_sm():
     assert tile_rows(8, (3, 5, 7), 11) == 32
     assert shared_bytes(8, (3, 5, 7), 11) == 4 * (8 * 38 * 39 + 8 * 83 * 12)
     assert 2 * (shared_bytes(8, (3, 5, 7), 11) + 1024) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("layer,I_,ks,OA,stride,rows", [
+    ("conv00", 3, (3, 7, 11), 11, 1, 32), ("downsample1", 8, (3,), 16, 2, 16), ("conv10", 16, (3, 5), 19, 1, 16),
+    ("downsample2", 16, (3,), 32, 2, 8), ("conv20", 32, (1, 3), 35, 1, 8), ("inner1", 48, (1,), 16, 1, 16),
+    ("out2", 16, (1, 3), 19, 1, 32), ("inner2", 24, (1,), 8, 1, 32), ("out3", 8, (1, 3), 11, 1, 32),
+])
+def test_feature_route_forms_share_an_sm(layer, I_, ks, OA, stride, rows):
+    """Every form of the feature route runs two blocks to an SM, at the rows
+    ``pick_rows`` gives it: conv00's tile has a halo of 5; a stride-2 tile
+    reads a (2·rows + 1) x 65 input box; inner1's 48 channels fit 16 rows."""
+    assert tile_rows(I_, ks, OA, stride) == rows
+    r = max(ks) // 2
+    th, tws = stride * (rows - 1) + 2 * r + 1, (stride * 31 + 2 * r + 1) | 1
+    slots = -(-OA // 12) * 12
+    tile = -(-I_ * th * tws // 4) * 4
+    assert shared_bytes(I_, ks, OA, stride) == 4 * (tile + sum(I_ * k * k * slots for k in ks))
+    assert 2 * (shared_bytes(I_, ks, OA, stride) + 1024) <= SMEM_LIMIT
+    if stride == 2:
+        assert (th, tws) == (2 * rows + 1, 65)

@@ -53,7 +53,7 @@ def test_conv01_branch_routes_agree(params):
     net = FeatureNet()
     load_module(net, params, "feature")
     a = net(x, epi, 0.01)
-    b = net(x, epi, 0.01, conv01_branches=dynconv_branches_plain)
+    b = net(x, epi, 0.01, branches={"conv01": dynconv_branches_plain})
     for s in a:
         for ta, tb in zip(a[s], b[s]):
             torch.testing.assert_close(ta, tb, rtol=1e-5, atol=1e-5)  # same sums
