@@ -5,84 +5,12 @@
 // K2 on a bf16 volume runs conv3d_mma_kernel: the tensor-core implicit GEMM
 // of conv3d_mma.cuh, which K6's conv0 shares. K2 on an fp32 volume (the fp32
 // route) runs conv3d_tf32_kernel, the same GEMM in 3xTF32 on
-// mma.sync.m16n8k8. The stride-2 K7 runs conv3d_down_mma_kernel in bf16,
-// the GEMM of conv3d_mma.cuh at stride 2, and the direct body
-// conv3d_bn_relu_kernel in fp32, whose FMAs K6's conv1 repeats.
+// mma.sync.m16n8k8 (conv3d_tf32.cuh, which K6-fp32's conv0 shares). The
+// stride-2 K7 runs conv3d_down_mma_kernel in bf16, the GEMM of
+// conv3d_mma.cuh at stride 2, and conv3d_down_tf32_kernel in fp32, the
+// 3xTF32 GEMM at stride 2, whose step K6's conv1 runs in both dtypes.
 #include "conv3d_mma.cuh"
-
-constexpr int TX = 32, TY = 8;
-
-// T: the volume's and the output's type, bf16 or fp32; the sums are fp32.
-// O: output channels; S: stride. The output is (O, (D-1)/S+1, (h-1)/S+1,
-// (w-1)/S+1); output voxel (d, y, x) reads input voxels S*d-1 .. S*d+1 along
-// each axis, zeros outside.
-template <typename T, int O, int S>
-__global__ void __launch_bounds__(TX * TY) conv3d_bn_relu_kernel(
-    const T* __restrict__ vol,      // (C, D, h, w)
-    const float* __restrict__ wt,   // (O, C, 3, 3, 3), eval BN folded in
-    const float* __restrict__ bias, // (O,)
-    T* __restrict__ out,            // (O, Do, ho, wo)
-    int C, int D, int h, int w) {
-  extern __shared__ float ws[];  // [c][tap][o]: the O weights of one tap side by side
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  for (int i = tid; i < C * 27 * O; i += TX * TY) {
-    const int o = i % O, ct = i / O;  // ct = c * 27 + tap
-    ws[i] = wt[o * C * 27 + ct];
-  }
-  __syncthreads();
-
-  const int Do = (D - 1) / S + 1, ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
-  const int x = blockIdx.x * TX + threadIdx.x;
-  const int y = blockIdx.y * TY + threadIdx.y;
-  const int d = blockIdx.z;
-  if (x >= wo || y >= ho) return;
-  const size_t hw = (size_t)h * w;
-
-  float acc[O];
-#pragma unroll
-  for (int o = 0; o < O; ++o) acc[o] = 0.f;
-  for (int c = 0; c < C; ++c) {
-#pragma unroll
-    for (int kd = 0; kd < 3; ++kd) {
-      const int dz = S * d + kd - 1;
-      if (dz < 0 || dz >= D) continue;
-      const T* plane = vol + ((size_t)c * D + dz) * hw;
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        const int yy = S * y + ky - 1;
-        if (yy < 0 || yy >= h) continue;
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const int xx = S * x + kx - 1;
-          if (xx < 0 || xx >= w) continue;
-          const float v = to_f32(plane[(size_t)yy * w + xx]);
-          const float* wp = ws + (c * 27 + kd * 9 + ky * 3 + kx) * O;
-#pragma unroll
-          for (int o = 0; o < O; ++o) acc[o] = fmaf(v, wp[o], acc[o]);
-        }
-      }
-    }
-  }
-  const size_t pix = (size_t)y * wo + x, hwo = (size_t)ho * wo;
-#pragma unroll
-  for (int o = 0; o < O; ++o) {
-    out[((size_t)o * Do + d) * hwo + pix] = from_f32<T>(fmaxf(acc[o] + __ldg(bias + o), 0.f));
-  }
-}
-
-template <typename T, int O, int S>
-static int launch(const void* vol, const void* wt, const void* bias, void* out, int C, int D,
-                  int h, int w, void* stream) {
-  const int Do = (D - 1) / S + 1, ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
-  const dim3 block(TX, TY);
-  const dim3 grid((wo + TX - 1) / TX, (ho + TY - 1) / TY, Do);
-  const size_t smem = (size_t)C * 27 * O * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  conv3d_bn_relu_kernel<T, O, S><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vol), static_cast<const float*>(wt), static_cast<const float*>(bias),
-      static_cast<T*>(out), C, D, h, w);
-  return (int)cudaGetLastError();
-}
+#include "conv3d_tf32.cuh"
 
 // K2 in bf16: conv3d_mma.cuh's body over output tiles of MZ x MY x MX
 // voxels, each row of 16 along x one M-tile. A block stays resident and
@@ -532,10 +460,11 @@ CDS_EXPORT int conv3d_down_plan(int O, int C, int D, int h, int w, int* out) {
 // mma.sync.m16n8k8 with TF32 inputs, as three products into one fp32 sum:
 // each fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna's rounding: 10 mantissa bits, ties away from zero), and a K-step
-// runs hi·hi, hi·lo and lo·hi. The dropped lo·lo and the roundings of lo
-// leave about 2^-21 of each |term|, far inside the fp32 route's tolerance of
-// 1e-5 of the sum of |terms| (tests/test_torch_conv3d_tf32.py models it);
-// one TF32 product alone, or hi·hi + hi·lo, misses it.
+// runs hi·hi, hi·lo and lo·hi (conv3d_tf32.cuh, shared with K7-fp32 and
+// K6). The dropped lo·lo and the roundings of lo leave about 2^-21 of each
+// |term|, far inside the fp32 route's tolerance of 1e-5 of the sum of
+// |terms| (tests/test_torch_conv3d_tf32.py models it); one TF32 product
+// alone, or hi·hi + hi·lo, misses it.
 //
 // The tiling is K2-bf16's (k2 above): a resident block of 8 warps walks
 // 4x4x32 output tiles; the halo of 8 channels (a chunk, zeros past C) is
@@ -554,47 +483,6 @@ constexpr int HZ = MZ + 2, HY = MY + 2, HX = MX + 2;  // x from x0 - 1
 constexpr int HV = HZ * HY * HX;                      // 1224 voxels, 39 KB a chunk
 constexpr int NTASK = (HV + kThreads - 1) / kThreads;  // 5 halo voxels a thread
 constexpr int kMaxSmem = 227 * 1024;
-
-// cvt.rna.tf32.f32 on a finite x, as two integer operations: half of the 13
-// dropped bits' weight added to the magnitude, then the bits cleared (ties
-// away from zero). The instruction itself also tests for NaN and ran 12 %
-// slower here (PERF.md).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));  // x - hi is exact in fp32
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Entry ((chunk * 27 + tap) * NT + nt) * 32 + lane: for n = nt*8 + lane/4 and
-// c = chunk*8 + lane%4, the B fragment {b0: channel c, b1: channel c + 4} of
-// the tap, once as hi and once as lo; zeros past C.
-template <int NT>
-__device__ void stage_weights(uint4* wfrag, const float* __restrict__ w, int C, int nchunks, int tid) {
-  const int n_entries = nchunks * conv_mma::TAPS * NT * 32;
-  for (int i = tid; i < n_entries; i += kThreads) {
-    const int lane = i % 32, rest = i / 32;
-    const int nt = rest % NT, step = rest / NT;
-    const int tap = step % conv_mma::TAPS, chunk = step / conv_mma::TAPS;
-    const int n = nt * 8 + lane / 4, c = chunk * conv_mma::CH + lane % 4;
-    const float v0 = c < C ? __ldg(w + ((size_t)n * C + c) * conv_mma::TAPS + tap) : 0.f;
-    const float v1 = c + 4 < C ? __ldg(w + ((size_t)n * C + c + 4) * conv_mma::TAPS + tap) : 0.f;
-    uint4 e;
-    split(v0, e.x, e.z);
-    split(v1, e.y, e.w);
-    wfrag[i] = e;
-  }
-}
 
 // Channels c0 .. c0+7 (zeros past C) of halo voxels v = i*kThreads + tid of
 // the box at (z0, y0, x0), zeros outside the volume.
@@ -646,17 +534,13 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MZ][NT][4], uint32_t halo
         uint32_t a[4], hi[4], lo[4];
         conv_mma::ldmatrix_x4(a, halo + lane_off[kx] + (hz * HY + ky) * HX * 32);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) split(__uint_as_float(a[j]), hi[j], lo[j]);
+        for (int j = 0; j < 4; ++j) tf32::split(__uint_as_float(a[j]), hi[j], lo[j]);
 #pragma unroll
         for (int kd = 0; kd < 3; ++kd) {
           const int m = hz - kd;
           if (m < 0 || m >= MZ) continue;
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            mma_tf32(acc[m][nt], hi, b[kd][nt].x, b[kd][nt].y);
-            mma_tf32(acc[m][nt], hi, b[kd][nt].z, b[kd][nt].w);
-            mma_tf32(acc[m][nt], lo, b[kd][nt].x, b[kd][nt].y);
-          }
+          for (int nt = 0; nt < NT; ++nt) tf32::mma3(acc[m][nt], hi, lo, b[kd][nt]);
         }
       }
     }
@@ -678,7 +562,7 @@ __global__ void __launch_bounds__(k2::kThreads, NT == 1 ? 2 : 1) conv3d_tf32_ker
   uint4* wfrag = smem;
   float4* halo = reinterpret_cast<float4*>(smem + nchunks * conv_mma::TAPS * NT * 32);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  stage_weights<NT>(wfrag, wt, C, nchunks, tid);
+  tf32::stage_weights<NT>(wfrag, wt, C, nchunks, tid, kThreads);
 
   // warp -> output row y = warp / 2, x from (warp % 2) * 16, M-tiles z = 0..3;
   // lane -> ldmatrix matrix lane / 8: rows (lane % 8) + 8 * (matrix & 1),
@@ -798,6 +682,321 @@ CDS_EXPORT int conv3d_tf32_plan(int O, int C, int* out) {
   return 0;
 }
 
+// K7 in fp32: the implicit GEMM at stride 2 in 3xTF32 (down_step of
+// conv3d_tf32.cuh: K2-fp32's products and order), over K7-bf16's output
+// tiles of MZ x MY x MX = 2 x 4 x 32 voxels. A block of 8 warps stays
+// resident and walks the tiles; a warp owns one (y, 16-x) column of its
+// tile, the M-tiles of its output planes stacked along z (2 at MY = 4), so
+// that each A fragment of input plane hz is loaded and split once for the
+// taps 2m + kd = hz.
+//
+// The input box of a tile and chunk of 8 channels: 2·MZ+1 planes and 2·MY+1
+// rows from 2·z0-1 and 2·y0-1, box x 1 .. 2·MX+1 (input x from 2·x0-2 at
+// box x 0), zeros outside the volume and past C; fp32, 32 bytes a voxel,
+// stored as two half-boxes (channels 0-3, channels 4-7) of 16 bytes a voxel,
+// each row split by x parity as K7-bf16's ([parity][x/2], PX = MX+1 slots a
+// parity, padded to an odd number of 16-byte slots a row). Output x ox reads
+// box x 2·ox+kx+1: parity 1 at slot ox (kx = 0), parity 0 at ox+1 (kx = 1),
+// parity 1 at ox+1 (kx = 2); the 8 rows of an ldmatrix phase are 8
+// consecutive 16-byte slots of one half-row and meet no bank twice, and the
+// address of any tap is the lane's offset plus a constant.
+//
+// Loads: w a multiple of 4 (every route shape) and a 16-byte aligned volume
+// take 16-byte loads, 4 voxels along x of one channel plane; a task is one
+// row and one such vector of all 8 channels (8 loads, 32 registers), or the
+// row's left voxel (box x 1). A warp's 32 vector tasks are 2 rows x the 16
+// vectors of a row; a store phase's 8 lanes are 2 rows x 4 neighbouring
+// vectors, which with a row of an odd number of slots meet no bank twice.
+// Otherwise four-byte loads, one a voxel and channel. The box is double
+// buffered: a thread's tasks of the next (tile, chunk) are loaded one at a
+// time, each before a share of the current (ky, kx) steps and stored into
+// the other buffer after them, one barrier a step. The fp32 outputs leave
+// from the fragments (8 lanes write 32 contiguous bytes of a channel).
+//
+// Shared memory: the weight fragments of every chunk (13.5 KB a chunk and
+// n-tile) and two boxes of 94.2 KB: one resident block an SM. Where the
+// fragments take more than two chunk-n-tiles (C > 8 at O = 16), the tile is
+// 2 x 2 x 32 (MY = 2; a warp one M-tile) and a box 52.3 KB.
+namespace k7f {
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kMaxSmem = 227 * 1024;
+template <int MY_>
+struct T {
+  static constexpr int MZ = 2, MY = MY_, MX = 32;
+  static constexpr int HZ = 2 * MZ + 1, HY = 2 * MY + 1, ROWS = HZ * HY;
+  static constexpr int PX = MX + 1;                  // slots of a parity sub-row
+  static constexpr int RS = (2 * PX + 1) * 16;       // bytes a half-row: an odd number of 16-byte slots
+  static constexpr int HALF = ROWS * RS;             // bytes of a half-box
+  static constexpr int BOX = 2 * HALF;               // bytes of one buffer
+  static constexpr int COLS = MY * (MX / 16);        // warp columns of 16 x
+  static constexpr int MZW = MZ * COLS / kWarps;     // M-tiles a warp, stacked along z
+  static constexpr int VECS = MX / 2;                // 4-voxel vectors a row: box x 2 .. 2·MX+1
+  static constexpr int NVEC = (ROWS + 1) / 2 * 32;   // vector task slots, 2 rows a warp; then ROWS left voxels
+  static constexpr int NTASK = (NVEC + ROWS + kThreads - 1) / kThreads;
+  static_assert(VECS == 16 && MZW >= 1 && MZ * COLS % kWarps == 0, "2 rows of 16 vectors a warp; whole columns");
+};
+
+template <typename G>
+__device__ __forceinline__ void tile_origin(int tile, int tiles_x, int tiles_y, int& z0, int& y0, int& x0) {
+  x0 = (tile % tiles_x) * G::MX;
+  y0 = ((tile / tiles_x) % tiles_y) * G::MY;
+  z0 = (tile / (tiles_x * tiles_y)) * G::MZ;
+}
+
+// Task slot v's box row and vector j (box x 2 + 4j .. 5 + 4j), or j = -1 for
+// the row's left voxel (box x 1); false for a slot without a task.
+template <typename G>
+__device__ __forceinline__ bool task(int v, int& row, int& j) {
+  if (v < G::NVEC) {
+    const int l = v % 32;
+    row = v / 32 * 2 + (l % 8) / 4;
+    j = (l / 8) * 4 + l % 4;
+  } else {
+    row = v - G::NVEC;
+    j = -1;
+  }
+  return row < G::ROWS;
+}
+
+__device__ __forceinline__ float lane4(const float4& q, int k) {
+  return k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+}
+
+// Task slot v of the chunk at channel c0 of the tile at output origin
+// (z0, y0, x0), into q: channel c's voxels in q[c] (the left voxel in .x).
+template <typename G>
+__device__ __forceinline__ void load_task(float4 (&q)[8], int v, const float* __restrict__ vol, size_t plane, int c0,
+                                          int C, int z0, int y0, int x0, int D, int h, int w, bool vec) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) q[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int row, j;
+  if (!task<G>(v, row, j)) return;
+  const int z = 2 * z0 - 1 + row / G::HY, y = 2 * y0 - 1 + row % G::HY, x = j < 0 ? 2 * x0 - 1 : 2 * x0 + 4 * j;
+  if (z < 0 || z >= D || y < 0 || y >= h || x < 0 || x >= w) return;
+  const float* p = vol + (size_t)c0 * plane + ((size_t)z * h + y) * w + x;
+  if (j < 0) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c0 + c < C) q[c].x = __ldg(p + c * plane);
+  } else if (vec) {  // x and w multiples of 4: the vector is in or out whole
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c0 + c < C) q[c] = __ldg(reinterpret_cast<const float4*>(p + c * plane));
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c0 + c < C) {
+        const float* pc = p + c * plane;
+        q[c] = make_float4(__ldg(pc), x + 1 < w ? __ldg(pc + 1) : 0.f, x + 2 < w ? __ldg(pc + 2) : 0.f,
+                           x + 3 < w ? __ldg(pc + 3) : 0.f);
+      }
+  }
+}
+
+// Byte offset of box x bx's slot in a half-row.
+template <typename G>
+__device__ __forceinline__ int slot_offset(int bx) {
+  return ((bx % 2) * G::PX + bx / 2) * 16;
+}
+
+// Task slot v's voxels into the box at `box`: voxel k of a vector (box x
+// 2 + 4j + k), channels 0-3 to the first half-box, 4-7 to the second.
+template <typename G>
+__device__ __forceinline__ void store_task(char* box, const float4 (&q)[8], int v) {
+  int row, j;
+  if (!task<G>(v, row, j)) return;
+  char* r = box + row * G::RS;
+  if (j < 0) {
+    const int at = slot_offset<G>(1);
+    *reinterpret_cast<float4*>(r + at) = make_float4(q[0].x, q[1].x, q[2].x, q[3].x);
+    *reinterpret_cast<float4*>(r + G::HALF + at) = make_float4(q[4].x, q[5].x, q[6].x, q[7].x);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int at = slot_offset<G>(2 + 4 * j + k);
+    *reinterpret_cast<float4*>(r + at) = make_float4(lane4(q[0], k), lane4(q[1], k), lane4(q[2], k), lane4(q[3], k));
+    *reinterpret_cast<float4*>(r + G::HALF + at) =
+        make_float4(lane4(q[4], k), lane4(q[5], k), lane4(q[6], k), lane4(q[7], k));
+  }
+}
+}  // namespace k7f
+
+// NT: output channels / 8; MY: the output tile's rows.
+template <int NT, int MY>
+__global__ void __launch_bounds__(k7f::kThreads, 1) conv3d_down_tf32_kernel(
+    const float* __restrict__ vol,  // (C, D, h, w)
+    const float* __restrict__ wt,   // (8*NT, C, 3, 3, 3), eval BN folded in
+    const float* __restrict__ bias, // (8*NT,)
+    float* __restrict__ out,        // (8*NT, Do, ho, wo)
+    int C, int D, int h, int w, int tiles_x, int tiles_y, int n_tiles) {
+  using G = k7f::T<MY>;
+  constexpr int kThreads = k7f::kThreads, MZW = G::MZW, NTASK = G::NTASK, STEPS = 9;
+  extern __shared__ uint4 smem[];
+  const int nchunks = (C + tf32::CH - 1) / tf32::CH;
+  uint4* wfrag = smem;
+  char* box = reinterpret_cast<char*>(smem + nchunks * tf32::TAPS * NT * 32);  // two buffers of G::BOX bytes
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  tf32::stage_weights<NT>(wfrag, wt, C, nchunks, tid, kThreads);
+
+  // the warp's column: output row my, x from mx, planes zw .. zw+MZW-1 of
+  // the tile; lane_off[kx]: byte offset of this lane's ldmatrix row (output
+  // x mx + mrow, channels 4·half ..) at box plane 2·zw, row 2·my and tap kx
+  const int col = warp % G::COLS, zw = warp / G::COLS * MZW, my = col / 2, mx = (col % 2) * 16;
+  const int mrow = (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
+  uint32_t lane_off[3];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+    lane_off[kx] = half * G::HALF + (2 * zw * G::HY + 2 * my) * G::RS + k7f::slot_offset<G>(2 * (mx + mrow) + kx + 1);
+  float bv[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[nt][e] = __ldg(bias + nt * 8 + 2 * (lane % 4) + e);
+  const int Do = (D - 1) / 2 + 1, ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
+  const size_t plane = (size_t)D * h * w, plane_o = (size_t)Do * ho * wo, hwo = (size_t)ho * wo;
+  const bool vec = w % 4 == 0 && (reinterpret_cast<uintptr_t>(vol) & 15) == 0;
+
+  int tile = blockIdx.x, chunk = 0, z0, y0, x0;
+  k7f::tile_origin<G>(tile, tiles_x, tiles_y, z0, y0, x0);
+#pragma unroll
+  for (int i = 0; i < NTASK; ++i) {
+    float4 q[8];
+    k7f::load_task<G>(q, i * kThreads + tid, vol, plane, 0, C, z0, y0, x0, D, h, w, vec);
+    k7f::store_task<G>(box, q, i * kThreads + tid);
+  }
+  __syncthreads();  // the weights and the first box are staged
+  float acc[MZW][NT][4];
+  conv_mma::zero(acc);
+  for (int cur = 0;; cur ^= 1) {
+    int next = tile, next_chunk = chunk + 1, nz = 0, ny = 0, nx = 0;
+    if (next_chunk == nchunks) next += gridDim.x, next_chunk = 0;
+    const bool more = next < n_tiles;
+    if (more) k7f::tile_origin<G>(next, tiles_x, tiles_y, nz, ny, nx);
+    const uint32_t box_s = conv_mma::smem_addr(box + cur * G::BOX);
+    const uint4* wf = wfrag + chunk * tf32::TAPS * NT * 32;
+    char* next_box = box + (cur ^ 1) * G::BOX;
+#pragma unroll
+    for (int i = 0; i < NTASK; ++i) {  // task i of the next box in flight during a share of the steps
+      float4 q[8];
+      if (more) k7f::load_task<G>(q, i * kThreads + tid, vol, plane, next_chunk * tf32::CH, C, nz, ny, nx, D, h, w, vec);
+#pragma unroll
+      for (int s = i * STEPS / NTASK; s < (i + 1) * STEPS / NTASK; ++s) {
+        const int ky = s / 3, kx = s % 3;
+        tf32::down_step<MZW, NT>(acc, ky, kx, wf, lane, [&](uint32_t(&a)[4], int hz) {
+          conv_mma::ldmatrix_x4(a, box_s + lane_off[kx] + (hz * G::HY + ky) * G::RS);
+        });
+      }
+      if (more) k7f::store_task<G>(next_box, q, i * kThreads + tid);
+    }
+    if (chunk == nchunks - 1) {
+      const int y = y0 + my;
+#pragma unroll
+      for (int m = 0; m < MZW; ++m) {
+        const int z = z0 + zw + m;
+        if (z >= Do || y >= ho) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int x = x0 + mx + lane / 4 + 8 * hf;
+          if (x >= wo) continue;
+          const size_t at = (size_t)z * hwo + (size_t)y * wo + x;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              out[(size_t)(nt * 8 + 2 * (lane % 4) + e) * plane_o + at] = fmaxf(acc[m][nt][2 * hf + e] + bv[nt][e], 0.f);
+        }
+      }
+      conv_mma::zero(acc);
+    }
+    if (!more) break;
+    __syncthreads();  // the next box is stored; every warp is done with this one
+    tile = next, chunk = next_chunk, z0 = nz, y0 = ny, x0 = nx;
+  }
+}
+
+template <int NT, int MY>
+static size_t down_tf32_smem(int C) {
+  const int nchunks = (C + tf32::CH - 1) / tf32::CH;
+  return (size_t)nchunks * tf32::TAPS * NT * 32 * sizeof(uint4) + 2 * (size_t)k7f::T<MY>::BOX;
+}
+
+// The card's resident blocks of conv3d_down_tf32_kernel<NT, MY> at C
+// channels (0 if the shared memory does not fit or a query fails); per_sm:
+// an SM's.
+template <int NT, int MY>
+static int down_tf32_resident(int C, int& per_sm) {
+  const size_t smem = down_tf32_smem<NT, MY>(C);
+  if (C <= 0 || smem > (size_t)k7f::kMaxSmem) return 0;
+  static const cudaError_t opt_in =  // once per instantiation, not per launch
+      cudaFuncSetAttribute(conv3d_down_tf32_kernel<NT, MY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k7f::kMaxSmem);
+  if (opt_in != cudaSuccess) return 0;
+  static int occupancy[64 + 1] = {};
+  const int chunks8 = (C + tf32::CH - 1) / tf32::CH * tf32::CH;
+  if (chunks8 > 64 * tf32::CH) return 0;
+  const int limit = conv_mma::resident_grid(conv3d_down_tf32_kernel<NT, MY>, k7f::kThreads, smem, chunks8, occupancy);
+  per_sm = occupancy[chunks8 / tf32::CH];
+  return limit;
+}
+
+// The tile rows K7-fp32 takes: 4 where the fragments of every chunk and
+// n-tile fit beside two 2x4x32 boxes (at most two chunk-n-tiles), else 2.
+static int down_tf32_rows(int O, int C) { return (C + tf32::CH - 1) / tf32::CH * (O / 8) <= 2 ? 4 : 2; }
+
+template <int MY>
+static void down_tf32_tiles(int D, int h, int w, int& tiles_x, int& tiles_y, int& n_tiles) {
+  using G = k7f::T<MY>;
+  const int Do = (D - 1) / 2 + 1, ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
+  tiles_x = (wo + G::MX - 1) / G::MX, tiles_y = (ho + G::MY - 1) / G::MY;
+  n_tiles = tiles_x * tiles_y * ((Do + G::MZ - 1) / G::MZ);
+}
+
+template <int NT, int MY>
+static int launch_down_tf32(const void* vol, const void* wt, const void* bias, void* out, int C, int D, int h, int w,
+                            void* stream) {
+  int per_sm = 0;
+  const int limit = down_tf32_resident<NT, MY>(C, per_sm);
+  if (limit == 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || h <= 0 || w <= 0) return 0;
+  int tiles_x, tiles_y, n_tiles;
+  down_tf32_tiles<MY>(D, h, w, tiles_x, tiles_y, n_tiles);
+  conv3d_down_tf32_kernel<NT, MY><<<n_tiles < limit ? n_tiles : limit, k7f::kThreads, down_tf32_smem<NT, MY>(C),
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vol), static_cast<const float*>(wt), static_cast<const float*>(bias),
+      static_cast<float*>(out), C, D, h, w, tiles_x, tiles_y, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// K7-fp32's launch plan at O output and C input channels and input D x h x
+// w, as conv3d_down_launch makes it: out = {tile z, y, x (output voxels),
+// tiles, blocks, registers a thread, resident blocks an SM, dynamic shared
+// bytes a block}.
+CDS_EXPORT int conv3d_down_tf32_plan(int O, int C, int D, int h, int w, int* out) {
+  if (O != 8 && O != 16) return (int)cudaErrorInvalidValue;
+  const int MY = down_tf32_rows(O, C);
+  int per_sm = 0, limit = 0, tiles_x, tiles_y, n_tiles;
+  size_t smem = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if (MY == 4) {
+    limit = O == 8 ? down_tf32_resident<1, 4>(C, per_sm) : down_tf32_resident<2, 4>(C, per_sm);
+    smem = O == 8 ? down_tf32_smem<1, 4>(C) : down_tf32_smem<2, 4>(C);
+    err = cudaFuncGetAttributes(&attr, O == 8 ? conv3d_down_tf32_kernel<1, 4> : conv3d_down_tf32_kernel<2, 4>);
+    down_tf32_tiles<4>(D, h, w, tiles_x, tiles_y, n_tiles);
+  } else {
+    limit = O == 8 ? down_tf32_resident<1, 2>(C, per_sm) : down_tf32_resident<2, 2>(C, per_sm);
+    smem = O == 8 ? down_tf32_smem<1, 2>(C) : down_tf32_smem<2, 2>(C);
+    err = cudaFuncGetAttributes(&attr, O == 8 ? conv3d_down_tf32_kernel<1, 2> : conv3d_down_tf32_kernel<2, 2>);
+    down_tf32_tiles<2>(D, h, w, tiles_x, tiles_y, n_tiles);
+  }
+  if (limit == 0 || err != cudaSuccess) return (int)cudaErrorInvalidConfiguration;
+  out[0] = 2; out[1] = MY; out[2] = 32;
+  out[3] = n_tiles; out[4] = n_tiles < limit ? n_tiles : limit;
+  out[5] = attr.numRegs; out[6] = per_sm; out[7] = (int)smem;
+  return 0;
+}
+
 template <int S>
 static int dispatch(const void* vol, const void* wt, const void* bias, void* out, int fp32, int O, int C, int D,
                     int h, int w, void* stream) {
@@ -813,9 +1012,12 @@ static int dispatch(const void* vol, const void* wt, const void* bias, void* out
   if constexpr (S == 1)  // K2 in fp32: 3xTF32 on the tensor cores
     return O == 8 ? launch_tf32<1>(vol, wt, bias, out, C, D, h, w, stream)
                   : launch_tf32<2>(vol, wt, bias, out, C, D, h, w, stream);
-  else  // K7 in fp32: the direct body (K6's fp32 form runs the same FMAs)
-    return O == 8 ? launch<float, 8, S>(vol, wt, bias, out, C, D, h, w, stream)
-                  : launch<float, 16, S>(vol, wt, bias, out, C, D, h, w, stream);
+  // K7 in fp32: 3xTF32 at stride 2 (K6's conv1 runs the same step)
+  if (down_tf32_rows(O, C) == 4)
+    return O == 8 ? launch_down_tf32<1, 4>(vol, wt, bias, out, C, D, h, w, stream)
+                  : launch_down_tf32<2, 4>(vol, wt, bias, out, C, D, h, w, stream);
+  return O == 8 ? launch_down_tf32<1, 2>(vol, wt, bias, out, C, D, h, w, stream)
+                : launch_down_tf32<2, 2>(vol, wt, bias, out, C, D, h, w, stream);
 }
 
 // K2, stride 1. fp32 = 1 for an fp32 volume and output, 0 for bf16; O in {8, 16}.

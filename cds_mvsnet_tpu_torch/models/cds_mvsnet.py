@@ -33,13 +33,27 @@ its device:
 - training in bf16: K5 (``fused_warp_train``); in fp32 the plain warp.
 ``kernels=False`` runs every site's plain version (``PLAIN_OPS``).
 
+``cost_dtype`` (``forward(..., cost_dtype=...)``, the JAX package's
+``apply_cds_mvsnet(..., cost_dtype=...)``, ``cds_mvsnet.py:85,331``) runs
+the cost regularisation of every stage at another precision than the rest
+(``models/stage_net.py``): in bf16 with ``cost_dtype=torch.float32`` the
+warps, vis heads and FeatureNet stay bf16 (K1, K4) and conv0, the fronts
+(K2, K6, K7 in fp32) and the UNet run fp32, with the plain tail at the
+exit; in fp32 with bf16 cost, K9 warps and K2 and K3 run bf16.
+``kernels=False`` gives each such path its plain twin.
+
 A :class:`~.warp_routes.Routes` (``forward(..., routes=...)``) picks each
 stage's warp, the cost-reg front and the FeatureNet convs on K4 among the
 JAX package's routes (``CDS_WARP_ROUTE``, ``CDS_COSTREG_FRONT``,
 ``CDS_FEAT_SPARSE``): K6, K7 and K8 run only there, and K4 on any conv but
-conv01.
-The JAX package routes bf16 features (``stage_net.py:422-439``), so routes
-take bf16 and the kernels; ``routes=None`` is ``KERNEL_OPS`` as above.
+conv01. Routes take ``kernels=True``. In bf16 every route runs; in fp32
+the six fronts and the warps ``v6``/``v3`` (K9 in fp32) and ``xla`` (the
+plain gather) run, a stage not named takes the fp32 route's K9, and the
+fused warps raise (the JAX package's fp32 features reach its variant table
+with their names, ``ops/pallas/warp.py:1592-1600``, which has none of
+them); the FeatureNet stays as on the fp32 path whatever ``Routes.feature``
+names (the JAX package keeps fp32 features dense, ``_want_sparse``,
+``feature_net_s2d.py:67``): K4 launches 0 times.
 """
 
 from __future__ import annotations
@@ -110,13 +124,22 @@ class CDSMVSNet(nn.Module):
 
     @torch.no_grad()
     def forward(self, imgs, proj_matrices, depth_values, temperature: float = 0.001,
-                compute_dtype=torch.float32, kernels: bool = True, routes: Routes | None = None):
+                compute_dtype=torch.float32, kernels: bool = True, routes: Routes | None = None,
+                cost_dtype=None):
         """Eval: every BN on its running statistics. The kernel sites run
         ``KERNEL_OPS`` in bf16, ``FP32_OPS`` in fp32, ``PLAIN_OPS`` without
-        ``kernels``; ``routes`` (bf16 with ``kernels`` only) picks each
-        stage's warp, the cost-reg front and the FeatureNet convs on K4."""
-        if routes is not None and not (kernels and compute_dtype == torch.bfloat16):
-            raise ValueError("routes take bf16 and kernels=True, as the JAX package routes bf16 features")
+        ``kernels``; ``routes`` (``kernels`` only; in fp32 the fronts and
+        the warps of ``FP32_WARP_ROUTES``) picks each stage's warp, the
+        cost-reg front and the FeatureNet convs on K4; ``cost_dtype`` (bf16
+        or fp32; None: ``compute_dtype``) the dtype of every stage's cost
+        regularisation."""
+        if routes is not None:
+            if not kernels:
+                raise ValueError("routes take kernels=True: they name kernels")
+            if compute_dtype == torch.float32:
+                routes.check_fp32()
+        if cost_dtype not in (None, torch.bfloat16, torch.float32):
+            raise ValueError(f"cost_dtype {cost_dtype}: bf16, fp32 or None")
         if not kernels:
             ops = PLAIN_OPS
         elif compute_dtype == torch.bfloat16:
@@ -125,7 +148,8 @@ class CDSMVSNet(nn.Module):
             ops = FP32_OPS
         else:
             raise ValueError(f"compute_dtype {compute_dtype}: bf16 or fp32")
-        return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=ops, routes=routes)
+        return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=ops, routes=routes,
+                             cost_dtype=cost_dtype)
 
     def forward_train(self, imgs, proj_matrices, depth_values, gt_depths, stats: StatsCollector,
                       temperature: float = 0.01, compute_dtype=torch.float32, kernels: bool = True,
@@ -162,7 +186,7 @@ class CDSMVSNet(nn.Module):
         return feats
 
     def _cascade(self, imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=PLAIN_OPS,
-                 warp=None, stats=None, gt_depths=None, remat_features=False, routes=None):
+                 warp=None, stats=None, gt_depths=None, remat_features=False, routes=None, cost_dtype=None):
         cfg = self.cfg
         B, V, H, W, _ = imgs.shape
         height, width = (H // 2, W // 2) if cfg.refine else (H, W)
@@ -179,7 +203,7 @@ class CDSMVSNet(nn.Module):
         stacked = torch.cat([ref_rep, srcs]).reshape(2 * (V - 1) * B, height, width, 3)
         stacked = stacked.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
         epis = torch.cat([ref_epi.transpose(0, 1), src_epi.transpose(0, 1)]).reshape(-1, 2)
-        feature = DEFAULT_FEATURE_ROUTE if routes is None else routes.feature
+        feature = DEFAULT_FEATURE_ROUTE if routes is None or compute_dtype == torch.float32 else routes.feature
         feats = self._features(stacked, epis, temperature, ops, stats, remat_features, V, feature)
 
         outputs = {}
@@ -210,8 +234,8 @@ class CDSMVSNet(nn.Module):
             vis_head = self.stage_net.vis[str(s)]
             cams = proj_matrices[name].float()
             if stats is None:
-                route = () if routes is None else (routes.stage(s + 1), routes.front)
-                out = stage_net(vis_head, cost_reg, features, cams, hyp, ops, *route)
+                route = (None, "pallas") if routes is None else (routes.warp.get(s + 1), routes.front)
+                out = stage_net(vis_head, cost_reg, features, cams, hyp, ops, *route, cost_dtype=cost_dtype)
             else:
                 gt = None if gt_depths is None else gt_depths[name].float()
                 out = stage_net_train(vis_head, cost_reg, features, cams, hyp, warp, stats, gt)

@@ -12,7 +12,14 @@ and the softmax/regression tail.
 - :func:`stage_net`, eval: per batch element, through one of three
   :class:`Ops`: ``KERNEL_OPS`` (bf16: K1 warps, K2 runs the UNet's conv0 and
   K3, ``ops/kernels/regress.py``, the exit), ``FP32_OPS`` (fp32: K9 gathers,
-  :func:`warp_entropy_gather`, and K2 runs conv0) or ``PLAIN_OPS``. A warp
+  :func:`warp_entropy_gather`, and K2 runs conv0) or ``PLAIN_OPS``.
+  ``cost_dtype`` (the JAX package's ``cost_dtype``,
+  ``_stage_net_pallas_tail`` :524-530) casts the visibility-weighted mean,
+  taken in the features' dtype, before the regularisation: the warp and the
+  vis head keep the features' dtype, conv0 and the front follow the
+  volume's, and so does the exit (:func:`cost_tail`: K3 takes a bf16
+  volume, an fp32 one the plain tail, as the JAX package's fp32 evals keep
+  the XLA tail, :544). A warp
   route and a cost-reg front (``models/warp_routes.py``, the JAX package's
   ``_stage_net_pallas`` dispatch at :332-509) put other kernels in the
   warp's and conv0's place: :func:`route_warp`, and for ``v6sb``/``v6sball``
@@ -43,7 +50,7 @@ from .layers import ConvBnReLU2d, conv2d
 from .warp_routes import BATCHED_ROUTES, WARP_ROUTES, parse_route
 
 __all__ = ["VisHead", "StageNet", "Ops", "stage_net", "stage_net_train", "warp_entropy_gather", "route_warp",
-           "KERNEL_OPS", "FP32_OPS", "PLAIN_OPS"]
+           "cost_tail", "KERNEL_OPS", "FP32_OPS", "PLAIN_OPS"]
 
 
 @dataclass(frozen=True)
@@ -122,6 +129,16 @@ PLAIN_OPS = Ops(K.warp_entropy_plain, K.conv3d_bn_relu_plain, K.exit_softargmin_
                 K.dynconv_branches_plain)
 
 
+def cost_tail(ops: Ops, dtype) -> Ops:
+    """The Ops whose ``conv0`` and ``exit`` run a cost volume of ``dtype``:
+    the kernel sets take the dtype's (``KERNEL_OPS`` for bf16, K3 at the
+    exit; ``FP32_OPS`` for fp32, the plain tail); any other set, the plain
+    one included, stays as it is."""
+    if ops in (KERNEL_OPS, FP32_OPS):
+        return KERNEL_OPS if dtype == torch.bfloat16 else FP32_OPS
+    return ops
+
+
 class VisHead(nn.Sequential):
     """(entropy, ref |curvature|) -> visibility: 2->16->16->16 ConvBnReLU,
     then a 1x1 conv with bias and a sigmoid."""
@@ -183,7 +200,7 @@ def _batched_volume(vis_head, features, cams, hyp, b):
 
 
 def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, ops: Ops,
-              warp_route: str | None = None, front: str = "pallas"):
+              warp_route: str | None = None, front: str = "pallas", cost_dtype=None):
     """Run one stage.
 
     Args:
@@ -194,6 +211,8 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
       warp_route: a warp route of ``models/warp_routes.py``, or ``None`` for
         ``ops.warp``.
       front: the cost-regularisation front (``CostRegNet.front``).
+      cost_dtype: the dtype of the regularisation (the volume mean cast to
+        it); None: the features' dtype.
     Returns:
       ``{"depth", "photometric_confidence", "norm_curv"}``, each ``(B, h, w)``.
     """
@@ -207,8 +226,11 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
         else:
             volume_sum, vis_sum = _view_volume(vis_head, warp, features, cams, hyp, b)
         volume_mean = volume_sum / (vis_sum + 1e-6)  # (C, D, h, w)
-        y = cost_reg(volume_mean, ops.conv0, front)
-        depth, conf = ops.exit(y, cost_reg.prob.weight.float().contiguous(), hyp)
+        if cost_dtype is not None:
+            volume_mean = volume_mean.to(cost_dtype)
+        tail = cost_tail(ops, volume_mean.dtype)
+        y = cost_reg(volume_mean, tail.conv0, front)
+        depth, conf = tail.exit(y, cost_reg.prob.weight.float().contiguous(), hyp)
         depths.append(depth)
         confs.append(conf)
     nc_sum = sum((f["ref"][1] + f["src"][1]) / 2 for f in features)

@@ -8,8 +8,7 @@ environment variables the JAX package reads at trace time,
 ``CDS_COSTREG_FRONT`` (``models/cost_reg.py:151-252``) and
 ``CDS_FEAT_SPARSE`` (``models/feature_net_s2d.py:42-72``). The port reads
 no environment variable: a :class:`Routes` is an explicit argument of
-``CDSMVSNet.forward`` (bf16 eval only, as the JAX package routes bf16
-features).
+``CDSMVSNet.forward`` (eval with kernels, bf16 or fp32).
 
 Warp routes (``WARP_ROUTES``: the port's function for each JAX name):
 
@@ -24,6 +23,13 @@ Warp routes (``WARP_ROUTES``: the port's function for each JAX name):
   C-sum in plain PyTorch;
 - ``xla``: the plain gather (``warp_gather_plain``), no kernel.
 
+In fp32 (``FP32_WARP_ROUTES``) only ``v6``/``v3`` (K9 in fp32) and ``xla``
+run, as in the JAX package, whose fp32 features take ``warp_pallas_padded``
+with the route's name as the variant (``models/stage_net.py:474-480``):
+its table (``ops/pallas/warp.py:1592-1600``) has ``v3`` and ``v6`` and none
+of the fused names, so :meth:`Routes.check_fp32` refuses them. A stage not
+named takes the fp32 path's warp (K9), as ``v8`` is the bf16 path's.
+
 Fronts (``FRONTS``): ``pallas`` (the default: conv0 on K2), ``pallasf``
 (conv0 and conv1 on K6), ``pallasf3`` (K6, then conv2 on K2 at O=16),
 ``pallas2`` (conv0 on K2, conv1 on K7), ``pallas3`` (``pallas2``, then conv2
@@ -34,8 +40,10 @@ Feature route (``feature``): the FeatureNet convs that run through K4
 (``dynconv_branches``), the port's counterpart of the JAX package's
 ``CDS_FEAT_SPARSE`` (``models/feature_net_s2d.py:42-72``): any of the 13
 names of ``FEATURE_LAYERS``, default ``conv01`` as there. The JAX package
-routes only bf16 features, and its TPU row-alignment test (``Wp % 8``) is
-Mosaic's limit, which the port's kernel does not have.
+routes only bf16 features (``_want_sparse``, :67): in fp32 the FeatureNet
+runs as on the fp32 path whatever the route names, and K4 does not launch.
+Its TPU row-alignment test (``Wp % 8``) is Mosaic's limit, which the port's
+kernel does not have.
 :func:`parse_feature_route` reads the JAX grammar: a comma list, ``all``,
 or ``off``/``none``/``0``/empty for none.
 
@@ -49,8 +57,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["Routes", "WARP_ROUTES", "FRONTS", "BATCHED_ROUTES", "FEATURE_LAYERS", "DEFAULT_FEATURE_ROUTE",
-           "parse_route", "parse_feature_route"]
+__all__ = ["Routes", "WARP_ROUTES", "FP32_WARP_ROUTES", "FRONTS", "BATCHED_ROUTES", "FEATURE_LAYERS",
+           "DEFAULT_FEATURE_ROUTE", "parse_route", "parse_feature_route"]
 
 WARP_ROUTES = {
     "v8": "warp_entropy",
@@ -67,6 +75,8 @@ WARP_ROUTES = {
     "xla": "warp_gather_plain",
 }
 BATCHED_ROUTES = ("v6sb", "v6sball")
+# the warp routes of fp32 features: the JAX variant table's (ops/pallas/warp.py:1592-1600) and the XLA gather
+FP32_WARP_ROUTES = ("v6", "v3", "xla")
 FRONTS = ("pallas", "pallasf", "pallasf3", "pallas2", "pallas3", "s2d")
 # the JAX package's _SPARSE_ALL and _FEAT_SPARSE_DEFAULT
 FEATURE_LAYERS = ("conv00", "conv01", "conv10", "conv11", "conv20", "conv21", "out1", "out2", "out3",
@@ -125,5 +135,17 @@ class Routes:
         parse_route(self.front, FRONTS)
 
     def stage(self, s: int) -> str:
-        """The warp route of stage ``s`` (1-based)."""
+        """The warp route of stage ``s`` (1-based) in bf16."""
         return self.warp.get(s, "v8")
+
+    def check_fp32(self) -> None:
+        """A ``ValueError`` for a warp route that fp32 features cannot take:
+        the fused names, which the JAX package's fp32 features reach its
+        variant table with (``ops/pallas/warp.py:1592-1600``: ``v3``, ``v6``
+        and the archive's), which has none of them. Every front runs."""
+        bad = {s: name for s, name in sorted(self.warp.items()) if name not in FP32_WARP_ROUTES}
+        if bad:
+            raise ValueError(
+                f"warp routes {bad} fuse the warp for bf16 features; fp32 features take {list(FP32_WARP_ROUTES)}: "
+                "the JAX package sends fp32 features to warp_pallas_padded, whose variant table "
+                "(ops/pallas/warp.py:1592-1600) has v3 and v6 and none of the fused routes")

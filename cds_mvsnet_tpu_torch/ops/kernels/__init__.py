@@ -32,7 +32,8 @@ from .warp_vjp import (
 # the eval cascade's kernels (bf16 route), the train step's, the fp32 eval
 # route's (K2 serves both eval routes), and those only the explicit routes
 # of models/warp_routes.py run (K6, K7, K8; the routes also run K2, K5's
-# forward and K9), and the probes' (P1, P2; tools/probe_*.py)
+# forward and K9; K6 and K7 in the volume's dtype, fp32 on the mixed path of
+# cost_dtype=float32), and the probes' (P1, P2; tools/probe_*.py)
 KERNELS = (warp_entropy, conv3d_bn_relu, exit_softargmin, dynconv_branches)
 TRAIN_KERNELS = (warp_sim, warp_sim_backward)
 FP32_KERNELS = (warp_gather, conv3d_bn_relu)

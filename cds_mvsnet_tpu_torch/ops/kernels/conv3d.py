@@ -10,7 +10,7 @@ route) or an fp32 one (the fp32 route); the output has the volume's dtype.
   ``pallas2``/``pallas3`` fronts. Replaces ``conv3d.py::conv3d_down`` (:490,
   the same body at ``stride=2``); D, h and w must be even.
 
-Kernel sources: ``csrc/conv3d.cu`` and ``csrc/conv3d_mma.cuh``.
+Kernel sources: ``csrc/conv3d.cu``, ``csrc/conv3d_mma.cuh`` and ``csrc/conv3d_tf32.cuh``.
 
 Bound on the H100: memory. K2 reads the ``(C, D, h, w)`` volume and writes
 ``(O, D, h, w)``: about 239 / 382 / 255 MB per launch at stages 1/2/3 of the
@@ -78,11 +78,28 @@ through the box just read, a warp's 32 x of each channel as 16-byte
 stores. C must be a multiple of 8. :func:`launch_plan` mirrors its tiles
 and box.
 
-K7 in fp32 keeps the direct body (``conv3d_bn_relu_kernel``): one thread
-per output voxel computes all O outputs with fp32 FMAs in ``(c, kd, ky,
-kx)`` order, the folded weights in shared memory, the input reuse left to
-L1. No path runs it; K6's conv1 runs the same FMAs on its bf16 conv0, so
-K6's out1 equals this form on ``out0.float()``, rounded to bf16.
+K7 in fp32 (``conv3d_down_tf32_kernel``) is the implicit GEMM at stride 2
+in 3xTF32 (``down_step`` in ``csrc/conv3d_tf32.cuh``: K2-fp32's three
+products and order, so it meets K2-fp32's tolerance, ``|d| <= 1e-5·Σ|terms|
++ 1e-7``). The tile walk is K7-bf16's: a resident block of 8 warps walks
+2x4x32 output tiles, a warp owning one (y, 16-x) column with its two output
+planes stacked along z, so that an A fragment of input plane hz is loaded
+and split once for the taps 2m + kd = hz. The box of a tile and chunk (5x9
+rows of 65 voxels) is fp32, 32 bytes a voxel, kept as two half-boxes
+(channels 0-3 and 4-7, 16 bytes a voxel), each row split by x parity and
+padded to an odd number of 16-byte slots: an ``ldmatrix`` phase reads 8
+consecutive slots of one half-row. It is loaded in 16-byte loads, 4 voxels
+along x of one channel plane, where w is a multiple of 4, and double
+buffered as K7-bf16's; the outputs leave from the fragments, 32 contiguous
+bytes a channel and 8 lanes. Two boxes and the weight fragments take 215 KB
+at C = 8, O = 16: one block an SM. Where the fragments of every chunk and
+n-tile exceed two (C > 8 at O = 16), the tile is 2x2x32 and a warp owns one
+M-tile. Bound: bytes, 40 a voxel of input (8 fp32 channels in, 16 out at an
+eighth of the voxels): 0.036 / 0.095 / 0.095 ms at the serve stages of the
+mixed path (``cost_dtype=float32``), its three TF32 products 0.016 / 0.042 /
+0.042 ms. :func:`launch_plan_fp32` mirrors its tiles and box. K6's conv1
+runs the same step on its conv0 tile in both dtypes, so K6's out1 equals
+this form on ``out0`` (in bf16 on ``out0.float()``, rounded).
 """
 
 from __future__ import annotations
@@ -94,7 +111,8 @@ from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 
 __all__ = ["conv3d_bn_relu", "conv3d_bn_relu_plain", "conv3d_down", "conv3d_down_plain", "fold_bn_into_conv3d",
-           "launch_plan", "box_offset", "row_offset", "tap_offset", "load_task"]
+           "launch_plan", "box_offset", "row_offset", "tap_offset", "load_task", "launch_plan_fp32",
+           "fp32_slot_offset", "fp32_lane_offset", "fp32_load_task"]
 
 OUT_CHANNELS = (8, 16)
 
@@ -110,6 +128,15 @@ K7_PX = K7_TILE[2] + 1
 K7_ROW_BYTES = (2 * K7_PX + 1) * 16
 K7_VECTOR_SLOTS = -(-K7_ROWS // 4) * 32  # a warp's 32 vector tasks: 4 rows x 8 vectors
 K7_OUT_STAGE = 16 * 80  # a warp's outputs on their way out: 16 channels x (32 x, 16 bytes of padding)
+
+# K7 in fp32 (csrc/conv3d.cu, namespace k7f): 8 warps, output tiles of 2 x MY
+# x 32 (MY = 4, or 2 where the weight fragments exceed two chunk-n-tiles);
+# a half-row (16 bytes a voxel: channels 0-3 or 4-7) holds both parities of
+# 33 slots, padded to an odd number of 16-byte slots
+K7F_THREADS = 256
+K7F_PX = K7_TILE[2] + 1
+K7F_ROW_BYTES = (2 * K7F_PX + 1) * 16
+K7F_MAX_SMEM = 227 * 1024
 
 
 def fold_bn_into_conv3d(weight, bn_weight, bn_bias, running_mean, running_var, eps: float = 1e-5):
@@ -208,6 +235,72 @@ def load_task(v: int) -> tuple[int, int] | None:
     else:
         row, hx = v - K7_VECTOR_SLOTS, 0
     return (row, hx) if row < K7_ROWS else None
+
+
+def _fp32_rows(C: int, O: int) -> int:
+    """K7-fp32's tile rows: 4 where the weight fragments are at most two
+    chunk-n-tiles, else 2."""
+    return 4 if -(-C // 8) * (O // 8) <= 2 else 2
+
+
+def launch_plan_fp32(C: int, D: int, h: int, w: int, O: int = 16) -> dict:
+    """K7-fp32's plan for an input ``(C, D, h, w)`` as ``csrc/conv3d.cu``
+    (``k7f``, ``conv3d_down_tf32_plan``) makes it: the output ``tile`` (z, y,
+    x), the output shape ``out``, the tiles along each axis and in all, the
+    z-stacked M-tiles a warp, the box's ``box_rows``, ``row_bytes`` (a
+    half-row) and one buffer's ``box_bytes`` (both half-boxes), the
+    ``shared_bytes`` of the weight fragments and two buffers, the load task
+    slots (:func:`fp32_load_task`) and a thread's share, and whether the
+    loads are 16-byte (``vector_loads``: w a multiple of 4)."""
+    require(O in OUT_CHANNELS and C > 0, f"launch_plan_fp32: C={C}, O={O}")
+    require(min(D, h, w) >= 1, f"launch_plan_fp32: D, h, w = {D}, {h}, {w}")
+    MY = _fp32_rows(C, O)
+    tile = (2, MY, K7_TILE[2])
+    out = ((D - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    tiles = tuple(-(-n // t) for n, t in zip(out, tile))
+    rows = 5 * (2 * MY + 1)
+    box = 2 * rows * K7F_ROW_BYTES
+    vector_slots = -(-rows // 2) * 32
+    tasks = vector_slots + rows
+    weights = -(-C // 8) * 27 * (O // 8) * 32 * 16  # 27 taps of 32 lanes' hi/lo fragments a chunk and n-tile
+    return {"tile": tile, "out": out, "tiles_zyx": tiles, "tiles": tiles[0] * tiles[1] * tiles[2],
+            "m_tiles_per_warp": 2 * MY * 2 // (K7F_THREADS // 32), "box_rows": rows, "row_bytes": K7F_ROW_BYTES,
+            "box_bytes": box, "shared_bytes": weights + 2 * box, "vector_slots": vector_slots, "tasks": tasks,
+            "tasks_per_thread": -(-tasks // K7F_THREADS), "vector_loads": w % 4 == 0}
+
+
+def fp32_slot_offset(bx: int) -> int:
+    """Byte offset in a half-row of K7-fp32's box of box x ``bx`` (input x
+    ``2·x0 - 2 + bx``): parity ``bx % 2``, slot ``bx // 2``."""
+    return ((bx % 2) * K7F_PX + bx // 2) * 16
+
+
+def fp32_lane_offset(lane: int, warp: int, kx: int, MY: int = 4) -> int:
+    """Byte offset in K7-fp32's box of lane ``lane``'s ldmatrix row of warp
+    ``warp``'s column at tap ``kx``, input plane 2·zw and row 2·my (output x
+    mx + row, channels 4·(lane // 16) ..), as the kernel's ``lane_off``."""
+    cols = MY * 2
+    col, zw = warp % cols, warp // cols * (2 * cols // (K7F_THREADS // 32))
+    my, mx = col // 2, (col % 2) * 16
+    mrow = (lane & 7) + ((lane >> 3) & 1) * 8
+    rows = 5 * (2 * MY + 1)
+    return ((lane >> 4) * rows * K7F_ROW_BYTES + (2 * zw * (2 * MY + 1) + 2 * my) * K7F_ROW_BYTES
+            + fp32_slot_offset(2 * (mx + mrow) + kx + 1))
+
+
+def fp32_load_task(v: int, MY: int = 4) -> tuple[int, int] | None:
+    """K7-fp32's load task slot ``v``: its box row and vector j (box x
+    2 + 4j .. 5 + 4j), j = -1 for the row's left voxel (box x 1); None for a
+    slot without a task. A warp's 32 vector slots are 2 rows x 16 vectors, a
+    store phase's 8 lanes 2 rows x 4 neighbouring vectors."""
+    rows = 5 * (2 * MY + 1)
+    vector_slots = -(-rows // 2) * 32
+    if v < vector_slots:
+        lane = v % 32
+        row, j = v // 32 * 2 + lane % 8 // 4, lane // 8 * 4 + lane % 4
+    else:
+        row, j = v - vector_slots, -1
+    return (row, j) if row < rows else None
 
 
 def _launch(name: str, fn_name: str, vol, w, b, stride: int) -> torch.Tensor:

@@ -10,12 +10,14 @@ fronts of ``models/cost_reg.py`` run it.
 
 Replaces ``cds_mvsnet_tpu/ops/pallas/conv3d.py::conv3d_front_fused`` (:392,
 ``pallas_call`` :457, body ``_conv3d_fused_kernel`` :233). Kernel sources:
-``csrc/conv3d_fused.cu`` and ``csrc/conv3d_mma.cuh``.
+``csrc/conv3d_fused.cu``, ``csrc/conv3d_mma.cuh`` and
+``csrc/conv3d_tf32.cuh``.
 
-Bound on the H100: memory: it reads the volume and writes out0 and out1,
-about 250 / 414 / 287 MB per launch at stages 1/2/3 of the 1152x864 main
-path (75 / 124 / 86 µs at 3.35 TB/s), for 41 / 55 / 28 GFLOP of conv0 and
-2.6 / 6.9 / 6.9 of conv1.
+Bound on the H100: memory in bf16: it reads the volume and writes out0 and
+out1, about 250 / 414 / 287 MB per launch at stages 1/2/3 of the 1152x864
+main path (75 / 124 / 86 µs at 3.35 TB/s), for 41 / 55 / 28 GFLOP of conv0
+and 2.6 / 6.9 / 6.9 of conv1. In fp32 its three TF32 products bound it
+(0.118 / 0.167 / 0.093 ms at the DTU protocol's stages, ``chip_smoke.py``).
 
 bf16 (``conv3d_fused_mma_kernel``): a block of 8 warps owns a 2x4x16 tile
 of conv1 outputs at a time, stays resident and walks the tiles. Phase 1
@@ -30,30 +32,41 @@ registers at two blocks per SM; each pass stages its own input halo (5 or
 next one's loads in flight during the current MMAs: 9 input planes per
 chunk for the 7 a single pass would stage. The voxels of a pass, flattened,
 are M-tiles of 16 rows; ldmatrix takes each row's address, so no row is
-spent on padding along x. Each conv0 value, after
-bias, ReLU and rounding to bf16, goes to a shared conv0 tile, 0 outside the
-volume (conv1's zero padding at index -1; the high side is never read by a
-valid output, as D, h and w are even), and the 4x8x32 voxels the tile owns
-go to out0 from there, two along x per store, each once. Phase 2 computes
-conv1 from the shared tile with the fp32 FMAs of K7's fp32 form in its
-order (``c, kd, ky, kx``), so out1 equals K7's fp32 form on
-``out0.float()``, rounded to bf16, bit for bit (K7 in bf16 runs on the
-tensor cores and keeps one bf16 ulp): 256 threads, one output and 8 of its
-16 channels each. Shared memory at C = 32: 28.0 KB of conv0 weight
-fragments, 30.9 KB of halo, 13.5 KB of conv1 weights, 23.2 KB of conv0
-tile, 95.6 KB in all: two blocks per SM. The fusion saves only the bytes of
-writing and reading out0 once (0.03-0.08 ms at the serve stages) against
-the 1.45x recompute and the larger halo, so K6 is slower than K2 and K7
-apart (``PERF.md``); it beats cuDNN's two calls. The TPU kernel's lane rolls,
-x-parity double buffer and one-hot decimation matmuls (``dec0``/``dec1``)
-are Mosaic mechanics and are not carried over; it rounds its weights to
-bf16, the port splits them (``conv3d.py``'s note).
+spent on padding along x. Each conv0 value, after bias, ReLU and rounding
+to bf16, goes to a shared conv0 tile ``[8][R]``, 0 outside the volume
+(conv1's zero padding at index -1; the high side is never read by a valid
+output, as D, h and w are even), and the 4x8x32 voxels the tile owns go to
+out0 from there, two along x per store, each once. Phase 2 computes conv1
+from the shared tile on K7-fp32's 3xTF32 step (``down_step`` in
+``csrc/conv3d_tf32.cuh``), each warp one output row of 16 x, its A
+fragments gathered from the tile (a bf16 value is exact in fp32 and its lo
+part 0), so out1 equals K7-fp32 on ``out0.float()``, rounded to bf16, bit
+for bit (K7 in bf16 runs on the tensor cores and keeps one bf16 ulp).
+Shared memory at C = 32: 28.0 KB of conv0 weight fragments, 30.9 KB of
+halo, 27.0 KB of conv1 fragments, 23.2 KB of conv0 tile, 109.1 KB in all:
+two blocks per SM. The fusion saves only the bytes of writing and reading
+out0 once (0.03-0.08 ms at the serve stages) against the 1.45x recompute
+and the larger halo, so K6 is slower than K2 and K7 apart (``PERF.md``); it
+beats cuDNN's two calls. The TPU kernel's lane rolls, x-parity double
+buffer and one-hot decimation matmuls (``dec0``/``dec1``) are Mosaic
+mechanics and are not carried over; it rounds its weights and an fp32
+volume to bf16 (``conv3d.py:186-187,428``), the port splits them
+(``conv3d.py``'s note).
 
-fp32 (``conv3d_fused_kernel``): the direct body of K2's and K7's fp32
-forms, one conv0 voxel per thread at a time with fp32 FMAs over a 9x9x33
-region per 4x4x16 conv1 tile, then one conv1 output per thread, so that in
-fp32 out1 equals K7 bit for bit (out0 is held to K2's 3xTF32 form by the
-fp32 tolerance).
+fp32 (``conv3d_fused_tf32_kernel``): K6-bf16's tile and walk with conv0 in
+3xTF32, K2-fp32's arithmetic in its order (``csrc/conv3d_tf32.cuh``), so
+out0 equals K2-fp32's output bit for bit, and conv1 as in bf16 on an fp32
+conv0 tile, so out1 equals K7-fp32 on out0 bit for bit. conv0 takes
+K2-fp32's walk as well: a region plane's 9x33 voxels, flattened, are 19
+M-tiles of 16 rows, and a column stacks M-tile p of the 5 planes along z,
+so that each A fragment of an input plane is loaded and split once for the
+three depth taps (12 warps, one or two columns a warp). One pass a chunk over a
+7x11x35-voxel halo, fp32, kept as two half-halos of 16 bytes a voxel
+(channels 0-3 and 4-7), so that an ``ldmatrix`` phase's 8 consecutive
+voxels meet no bank twice; the next chunk's halo is staged in registers
+during the MMAs. Shared memory at C = 32: 54 KB of conv0 fragments, 84.2
+KB of halo, 27 KB of conv1 fragments, 46.4 KB of conv0 tile, 211.6 KB: one
+block an SM. C is at most 40 (five chunks of fragments).
 """
 
 from __future__ import annotations
@@ -64,7 +77,9 @@ from . import _build
 from ._launch import I, P, entry, on_card, ptr, require, stream
 from .conv3d import check_conv, conv3d_bn_relu_plain, conv3d_down_plain
 
-__all__ = ["conv3d_front_fused", "conv3d_front_fused_plain"]
+__all__ = ["conv3d_front_fused", "conv3d_front_fused_plain", "FP32_MAX_C"]
+
+FP32_MAX_C = 40  # K6-fp32: five chunks of conv0 fragments beside the halo and the conv0 tile
 
 
 def conv3d_front_fused_plain(vol, w0, b0, w1, b1):
@@ -77,9 +92,9 @@ def conv3d_front_fused_plain(vol, w0, b0, w1, b1):
 def conv3d_front_fused(vol: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
                        b1: torch.Tensor):
     """``vol (C, D, h, w)`` bf16 or fp32, D, h, w even, C a multiple of 8 in
-    bf16; ``w0 (8, C, 3, 3, 3)``, ``b0 (8,)``, ``w1 (16, 8, 3, 3, 3)``,
-    ``b1 (16,)`` fp32 with BN folded -> ``(out0 (8, D, h, w), out1 (16, D/2,
-    h/2, w/2))`` in vol's dtype."""
+    bf16 and at most 40 in fp32; ``w0 (8, C, 3, 3, 3)``, ``b0 (8,)``, ``w1
+    (16, 8, 3, 3, 3)``, ``b1 (16,)`` fp32 with BN folded -> ``(out0 (8, D,
+    h, w), out1 (16, D/2, h/2, w/2))`` in vol's dtype."""
     check_conv("conv3d_front_fused", vol, w0, b0, out_channels=(8,), tensor_cores=True)
     require(tuple(w1.shape) == (16, 8, 3, 3, 3) and tuple(b1.shape) == (16,),
             f"conv3d_front_fused: w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}")
@@ -87,6 +102,8 @@ def conv3d_front_fused(vol: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1
     require(w1.is_contiguous() and b1.is_contiguous(), "conv3d_front_fused: inputs must be contiguous")
     C, D, h, w = vol.shape
     require(D % 2 == 0 and h % 2 == 0 and w % 2 == 0, f"conv3d_front_fused: D, h, w {(D, h, w)} must be even")
+    require(vol.dtype == torch.bfloat16 or C <= FP32_MAX_C,
+            f"conv3d_front_fused: fp32 takes C <= {FP32_MAX_C} (its weight fragments in shared memory), got C={C}")
     if not on_card("conv3d_front_fused", vol, w0, b0, w1, b1):
         return conv3d_front_fused_plain(vol, w0, b0, w1, b1)
     out0 = torch.empty((8, D, h, w), dtype=vol.dtype, device=vol.device)

@@ -15,7 +15,13 @@ the same source beside it, and K2 in fp32 (the fp32 route's conv0, O = 8)
 at the stage shapes of the DTU protocol point (576x768 under refinement),
 the serve point and the stream point (480x640, ndepths 128/32/8), and K7
 in bf16 (``k7``: conv1 of the ``pallas2``/``pallas3`` fronts, 8 -> 16 at
-stride 2) on conv0's output shape at the serve stages. Rounds alternate the
+stride 2) on conv0's output shape at the serve stages; ``k6_fp32`` and
+``k7_fp32`` (not in the default list): K6 and K7 in fp32, as the mixed
+path (``cost_dtype=float32`` at the serve point, ``mixed<s>``) and the fp32
+routes at the protocol point (``protocol<s>``) run them, by CUDA events and
+by device time, beside cuDNN with TF32 off, the plain version, their bound
+(3xTF32) and one conv's fp32 FMA floor; K6 also beside its K2 then K7
+apart, with out0 equal to that K2 and out1 to that K7 on out0. Rounds alternate the
 order of the sources (A B, B A, ...); a time is the median over rounds of
 the mean of ``--reps`` launches between CUDA events (``tools/_timing.py``),
 for K7 of the device time of a launch under ``torch.profiler``. cuDNN's call
@@ -126,14 +132,17 @@ def main(argv=None) -> int:
     cases += [("k2_fp32", f"{point}{s}", shape, 8) for point, shapes in
               (("protocol", PROTOCOL), ("serve", SERVE), ("stream", STREAM)) for s, shape in enumerate(shapes, 1)]
     cases += [("k7", f"serve{s}", (8, D, h, w), 16) for s, (_, D, h, w) in enumerate(SERVE, start=1)]
-    cases += [("k6_fp32", f"protocol{s}", shape, 8) for s, shape in enumerate(PROTOCOL, start=1)]
-    cases += [("k7_fp32", f"protocol{s}", (8, D, h, w), 16) for s, (_, D, h, w) in enumerate(PROTOCOL, start=1)]
+    cases += [("k6_fp32", f"{point}{s}", shape, 8) for point, shapes in (("protocol", PROTOCOL), ("mixed", SERVE))
+              for s, shape in enumerate(shapes, start=1)]
+    cases += [("k7_fp32", f"{point}{s}", (8, D, h, w), 16) for point, shapes in (("protocol", PROTOCOL), ("mixed", SERVE))
+              for s, (_, D, h, w) in enumerate(shapes, start=1)]
     cases = [case for case in cases if case[0] in args.kernels]
     sources = list(args.dirs) + ([(args.dirs[0], ("CDS_K7_LOADS_ONLY",))] if args.loads_only else [])
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(sources, ("conv3d", "conv3d_fused"), Path(tmp))
         for i, lib in enumerate(libs):
-            regs = ptxas_registers(lib["conv3d"].ptxas_log, "conv3d")
+            regs = {**ptxas_registers(lib["conv3d"].ptxas_log, "conv3d"),
+                    **ptxas_registers(lib["conv3d_fused"].ptxas_log, "conv3d_fused")}
             print(json.dumps({"source": str(sources[i]), "registers_and_spill_bytes": regs}), flush=True)
         for kernel, point, shape, O in cases:
             if kernel == "k7":
@@ -153,8 +162,9 @@ def main(argv=None) -> int:
                 if kernel == "k6":
                     out0, out1 = fused(lib, vol, *wb, *w1b1)
                     k2 = conv(lib, "conv3d_bn_relu_launch", vol, *wb, 1)
-                    # K6's conv1 runs K7's fp32 FMAs in K7's order: K7 in fp32
-                    # on out0's values, rounded to bf16
+                    # K6's conv1 runs K7-fp32's arithmetic in its order (in
+                    # older sources its direct FMAs): K7 in fp32 on out0's
+                    # values, rounded
                     k7_fp32 = conv(lib, "conv3d_down_launch", out0.float(), *w1b1, 2).to(torch.bfloat16)
                     first = first or (out0, out1)
                     checks[i] = {"equal_to_k2_then_k7": torch.equal(out0, k2) and torch.equal(out1, k7_fp32),
@@ -208,16 +218,25 @@ def fp32_err(got, want, vol, w, b, stride: int) -> dict:
 
 
 def time_fp32_front(libs, args, kernel, point, shape, O, uniform, weights) -> None:
-    """K6 or K7 in fp32 (the direct bodies) at one shape, each source beside
-    cuDNN in fp32 with TF32 off: a row per source with its bound and check."""
+    """K6 or K7 in fp32 at one shape, each source beside cuDNN in fp32 with
+    TF32 off and the plain version, by CUDA events (``ms``) and by device
+    time under ``torch.profiler`` (``device_ms``): a row per source with its
+    bound (the three TF32 products of a 3xTF32 kernel, or bytes), one
+    conv's fp32 FMA floor beside it, its check against the plain version
+    (1e-5 of the sum of |terms| + 1e-7), whether the output equals the first
+    source's, and for K6 whether out0 equals the same source's K2 and out1
+    its K7 on out0 bit for bit and the time of that K2 then K7 apart."""
     C, D, h, w = shape
     vol = uniform(shape, dtype=torch.float32)
     wb = weights(O, C)
     runs, checks = {}, {}
     if kernel == "k7_fp32":
         want = K.conv3d_down_plain(vol, *wb)
+        first = None
         for i, lib in enumerate(libs):
-            checks[i] = fp32_err(conv(lib, "conv3d_down_launch", vol, *wb, 2), want, vol, *wb, 2)
+            y = conv(lib, "conv3d_down_launch", vol, *wb, 2)
+            first = y if first is None else first
+            checks[i] = {**fp32_err(y, want, vol, *wb, 2), "equals_first": torch.equal(y, first)}
             runs[i] = lambda lib=lib: conv(lib, "conv3d_down_launch", vol, *wb, 2)
         runs["cudnn"] = lambda: F.conv3d(vol[None], *wb, stride=2, padding=1).relu_()
         runs["plain"] = lambda: K.conv3d_down_plain(vol, *wb)
@@ -226,28 +245,40 @@ def time_fp32_front(libs, args, kernel, point, shape, O, uniform, weights) -> No
         weights_bytes = sum(t.numel() * 4 for t in wb)
     else:
         w1b1 = weights(16, 8)
-        want0, want1 = K.conv3d_front_fused_plain(vol, *wb, *w1b1)
+        want0 = K.conv3d_bn_relu_plain(vol, *wb)
+        first = None
         for i, lib in enumerate(libs):
             out0, out1 = fused(lib, vol, *wb, *w1b1)
-            e0, e1 = fp32_err(out0, want0, vol, *wb, 1), fp32_err(out1, K.conv3d_down_plain(out0, *w1b1), out0,
-                                                                 *w1b1, 2)
+            first = (out0, out1) if first is None else first
+            e0 = fp32_err(out0, want0, vol, *wb, 1)
+            e1 = fp32_err(out1, K.conv3d_down_plain(out0, *w1b1), out0, *w1b1, 2)
             checks[i] = {"max_abs_err": max(e0["max_abs_err"], e1["max_abs_err"]),
-                         "within_fp32_tol": e0["within_fp32_tol"] and e1["within_fp32_tol"]}
+                         "within_fp32_tol": e0["within_fp32_tol"] and e1["within_fp32_tol"],
+                         "out0_equals_k2": torch.equal(out0, conv(lib, "conv3d_bn_relu_launch", vol, *wb, 1)),
+                         "out1_equals_k7_on_out0": torch.equal(out1, conv(lib, "conv3d_down_launch", out0, *w1b1, 2)),
+                         "equals_first": torch.equal(out0, first[0]) and torch.equal(out1, first[1])}
             runs[i] = lambda lib=lib: fused(lib, vol, *wb, *w1b1)
+            runs[f"k2_plus_k7_{i}"] = lambda lib=lib: conv(
+                lib, "conv3d_down_launch", conv(lib, "conv3d_bn_relu_launch", vol, *wb, 1), *w1b1, 2)
         runs["cudnn"] = lambda: F.conv3d(F.conv3d(vol[None], *wb, padding=1).relu_(), *w1b1, stride=2,
                                          padding=1).relu_()
         runs["plain"] = lambda: K.conv3d_front_fused_plain(vol, *wb, *w1b1)
-        out_elems = want0.numel() + want1.numel()
-        flops = 2 * 27 * C * want0.numel() + 2 * 27 * 8 * want1.numel()
+        out_elems = want0.numel() + want0[0].numel() * 2  # out0, and out1's 16 channels at an eighth
+        flops = 2 * 27 * C * want0.numel() + 2 * 27 * 8 * 16 * want0[0].numel() // 8
         weights_bytes = sum(t.numel() * 4 for t in (*wb, *w1b1))
     med = medians(runs, args.rounds, args.reps)
+    dev = {k: statistics.median(t for t, _ in v) for k, v in alternate_device(
+        {i: runs[i] for i in range(len(libs))}, args.rounds, args.reps).items()}
     io_bytes = (vol.numel() + out_elems) * 4 + weights_bytes
-    bound = {"bytes": io_bytes / 3.35e12 * 1e3, "operations": flops / 67e12 * 1e3}
+    bound = {"bytes": io_bytes / 3.35e12 * 1e3, "operations": 3 * flops / 495e12 * 1e3}
     for i, d in enumerate(args.dirs):
-        print(json.dumps({"kernel": kernel, "point": point, "shape": list(shape), "O": O, "dir": str(d),
-                          "ms": med[i], "cudnn_ms": med["cudnn"], "plain_ms": med["plain"],
-                          "bound_ms": max(bound.values()),
-                          "bound_by": max(bound, key=bound.get), "bound_halves_ms": bound, **checks[i]}), flush=True)
+        row = {"kernel": kernel, "point": point, "shape": list(shape), "O": O, "dir": str(d), "ms": med[i],
+               "device_ms": dev[i], "cudnn_ms": med["cudnn"], "plain_ms": med["plain"],
+               "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get), "bound_halves_ms": bound,
+               "fma_floor_ms": flops / 67e12 * 1e3, **checks[i]}
+        if kernel == "k6_fp32":
+            row["k2_plus_k7_ms"] = med[f"k2_plus_k7_{i}"]
+        print(json.dumps(row), flush=True)
     del vol
     torch.cuda.empty_cache()
 

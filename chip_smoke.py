@@ -32,7 +32,12 @@ Phases, one JSON line each:
    channels and K8 (per view and over the 4 source views in one launch),
    which only the explicit routes run, at the serve shapes, K7's and K8's
    rows with the profiler's device time of a launch and their launch plans
-   on a ``route_plan`` line per stage; K1-K4 again at
+   on a ``route_plan`` line per stage; K6 and K7 in fp32 (3xTF32 on the
+   tensor cores) at the serve stage shapes as the mixed path runs them (rows
+   ``"point": "mixed"``) and at the DTU protocol's (``"point": "protocol"``),
+   each with its device time, its bound beside one conv's fp32 FMA floor,
+   cuDNN's fp32 calls with TF32 off and, for K6, K2 then K7 apart, K6's out0
+   and out1 held bit for bit to K2 and K7 in fp32; K1-K4 again at
    the stream point's shapes (C/D/h x w = 32/128/120x160, 16/32/240x320,
    8/8/480x640, K4 on 8 frames at 480x640); P1 and P2, the probes' kernels,
    at their probes' inputs (and P1 on a 192 KB band), bit for bit;
@@ -56,6 +61,16 @@ Phases, one JSON line each:
    twin and, where the serve gate misses, by the JAX route's FeatureNet
    criterion, with each FeatureNet block's device time beside the default
    route's; one R1 and one R5 request run under ``torch.profiler``;
+   mixed: the serve point in bf16 with ``cost_dtype=torch.float32`` under
+   the fronts ``pallas``, ``pallasf``, ``pallasf3``, ``pallas2`` and
+   ``pallas3`` (MIXED), 2 timed requests each with exact launch counts (K1
+   12, K4 1, K3 0, K2/K6/K7 in fp32 by front), stage 3 held to the serve
+   gate against its plain twin, and reported beside the default request:
+   latency per map, depth and confidence against the plain fp32 cascade;
+   one request profiled; fp32_routed: one fp32 request under ``v6`` warps
+   and the ``pallasf3`` front at the DTU protocol point (K9 12, K6 3 and K2
+   3 at O=16, in fp32) held to the serve gate against the fp32 default
+   request;
 4. train: the train step at the JAX package's train bench point (512x640
    DTU crops, B=2, V=5, D=192, ndepths 48/32/8, refinement, bf16, FeatureNet
    recomputed in the backward, SGD lr 0.01 and weight decay 0.01,
@@ -101,8 +116,9 @@ Phases, one JSON line each:
 7. custom: the custom-scene path (COLMAP workspace -> ``data/colmap.py`` ->
    ``test_cli --dataset general`` at 864x1152 in bf16 -> normal fusion ->
    ``score_points`` and ``eval_depth_map`` against the scene's geometry);
-8. summary: one ``{"kernels": [...]}`` line (K1-K9, P1 and P2), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+8. summary: one ``{"kernels": [...]}`` line (K1-K9, K6 and K7 in fp32 with
+   the mixed path's launches, P1 and P2), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Nothing falls back: no GPU
 means exit code 2 before any work.
@@ -169,6 +185,8 @@ KERNEL_INFO = {
     "conv3d_bn_relu_fp32": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "conv3d_front_fused": ("cds_mvsnet_tpu_torch/csrc/conv3d_fused.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:392"),
     "conv3d_down": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:490"),
+    "conv3d_front_fused_fp32": ("cds_mvsnet_tpu_torch/csrc/conv3d_fused.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:392"),
+    "conv3d_down_fp32": ("cds_mvsnet_tpu_torch/csrc/conv3d.cu", "cds_mvsnet_tpu/ops/pallas/conv3d.py:490"),
     "conv3d_bn_relu_o16": ("cds_mvsnet_tpu_torch/csrc/conv3d_mma.cuh", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
     "warp_sim_coords": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1451"),
     "warp_sim_coords_batched": ("cds_mvsnet_tpu_torch/csrc/warp_coords.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:431"),
@@ -184,14 +202,18 @@ PROBE_NAMES = tuple(PER_PROBE_RUN)
 # kernels whose launches the fp32 product run counts (K2's wrapper serves both routes)
 FP32_KERNEL_NAMES = ("warp_gather", "conv3d_bn_relu_fp32")
 TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
+# the fp32 forms of K6 and K7, which the mixed path (cost_dtype=float32)
+# runs: their rows at the mixed serve point are the main ones
+MIXED_KERNEL_NAMES = ("conv3d_front_fused_fp32", "conv3d_down_fp32")
 # the kernels' symbols as the profiler names them (csrc/*.cu): K1
 # warp_entropy_kernel (warp_kernel<C, false> in earlier commits), K5's forward
 # warp_kernel, its backward warp_sim_backward_kernel and
 # warp_sim_backward_finish_kernel (to_bf16_kernel in earlier commits); K2 in
 # bf16 conv3d_mma_kernel, in fp32 conv3d_tf32_kernel
 # (conv3d_bn_relu_kernel in earlier commits), K7 in bf16 conv3d_down_mma_kernel
-# (conv3d_bn_relu_kernel in earlier commits, as K7 in fp32 still); K6 in bf16
-# conv3d_fused_mma_kernel, in fp32 conv3d_fused_kernel; K3
+# (conv3d_bn_relu_kernel in earlier commits, as K7 in fp32 then); K6 in bf16
+# conv3d_fused_mma_kernel, in fp32 conv3d_fused_tf32_kernel (conv3d_fused_kernel
+# in earlier commits), K7 in fp32 conv3d_down_tf32_kernel; K3
 # exit_softargmin_kernel<cols, rows, planes> (a plain function, named
 # without "void", in earlier commits, whose csrc this script also reads), K4
 # dynconv_kernel<OA>, K9 gather_kernel<T, C> (the lane-group gather)
@@ -201,7 +223,7 @@ KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_b
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "warp_sim_backward_finish_kernel",
                   "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
-                  "void conv3d_down_mma_kernel",
+                  "void conv3d_down_mma_kernel", "conv3d_fused_tf32_kernel", "void conv3d_down_tf32_kernel",
                   "lane_slice_kernel", "void row_gather_kernel", "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
@@ -252,6 +274,29 @@ ROUTED = {
 }
 # the feature route of each routed request (the others: the default conv01)
 ROUTE_FEATURE = {"R5": "all"}
+# the mixed path: the serve point in bf16 with cost_dtype=float32 (the cost
+# regularisation in fp32) under each front, the default warp (v8) and
+# feature route (conv01); the launches of one request beside K1's 12 and
+# K4's 1 (K3 0: an fp32 volume takes the plain tail). K2 in fp32 runs conv0
+# (pallas, pallas2, pallas3) and conv2 at O=16 (pallas3, pallasf3), K6 in
+# fp32 conv0 and conv1 (pallasf, pallasf3), K7 in fp32 conv1 (pallas2,
+# pallas3)
+MIXED_REQUESTS = 2
+MIXED_BASE = {"warp_entropy": 3 * (V - 1), "dynconv_branches": 1}
+MIXED = {
+    "pallas": {"conv3d_bn_relu": 3},
+    "pallasf": {"conv3d_front_fused": 3},
+    "pallasf3": {"conv3d_front_fused": 3, "conv3d_bn_relu": 3},
+    "pallas2": {"conv3d_bn_relu": 3, "conv3d_down": 3},
+    "pallas3": {"conv3d_bn_relu": 6, "conv3d_down": 3},
+}
+# the front whose launches of K6 and K7 in fp32 the kernels line reports
+MIXED_LAUNCHES = {"conv3d_front_fused_fp32": ("pallasf", "conv3d_front_fused"),
+                  "conv3d_down_fp32": ("pallas2", "conv3d_down")}
+# one fp32 request under routes at the DTU protocol point: K9 warps every
+# stage (v6), K6 in fp32 conv0 and conv1, K2 in fp32 conv2 at O=16
+FP32_ROUTED = ({1: "v6", 2: "v6", 3: "v6"}, "pallasf3",
+               {"warp_gather": 3 * (V - 1), "conv3d_front_fused": 3, "conv3d_bn_relu": 3})
 # which routed request's counts each route-only kernel reports in the
 # kernels line (conv3d_bn_relu_o16: R1, whose K2 launches are all conv2's)
 ROUTE_LAUNCHES = {"conv3d_front_fused": ("R1", "conv3d_front_fused"), "conv3d_bn_relu_o16": ("R1", "conv3d_bn_relu"),
@@ -370,6 +415,8 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
 
         cascade_kernels(torch, dev, uniform, record, s, (C, D, h, w), hyp, rt)
 
+    # K6 and K7 in fp32 as the mixed path (cost_dtype=float32) runs them
+    fp32_front_kernels(torch, uniform, tagged(record, "mixed"), stage_shapes())
     # K4: conv01 over the stack of 2(V-1) images, branches k = 3, 5, 7
     dynconv_kernel(torch, uniform, record, 2 * (V - 1), H, W)
     feature_kernels(torch, uniform, tagged(record, "feature"))
@@ -829,7 +876,7 @@ def route_kernels(torch, batch, uniform, record, s, shape, hyp):
     torch.cuda.synchronize()
     e0, ok0 = one_ulp(o0, K.conv3d_bn_relu_plain(vol, *wb0))
     e1, ok1 = one_ulp(o1, K.conv3d_down_plain(o0, *wb1))
-    # K6's conv1 runs the FMAs of K7's fp32 form (the direct body) on out0:
+    # K6's conv1 runs K7-fp32's step (csrc/conv3d_tf32.cuh) on out0:
     # K7 in fp32 on out0's values, rounded to bf16, bit for bit
     same_as_k2_k7 = torch.equal(o0, K.conv3d_bn_relu(vol, *wb0)) and torch.equal(
         o1, K.conv3d_down(o0.float(), *wb1).to(torch.bfloat16))
@@ -895,6 +942,72 @@ def route_plans(s, shape) -> None:
           "warp_sim_coords_batched": {"shape": [V - 1, C, D, h, w], **k8_module.card_plan(V - 1, C, D, h, w)}})
 
 
+def fp32_front_kernels(torch, uniform, record, shapes) -> None:
+    """K6 and K7 in fp32 (3xTF32 on the tensor cores) at the stage ``shapes``
+    of a point: K6 on the volume mean's shape, K7 on conv0's output. Gates:
+    each output within 1e-5 of the sum of |terms| + 1e-7 of its plain
+    version (K6's out1 on its own out0), and bit for bit K6's out0 with K2 in
+    fp32 and its out1 with K7 in fp32 on out0 (the shared bodies of
+    csrc/conv3d_tf32.cuh). Each row has the profiler's device ms, the bound
+    of the three TF32 products beside one conv's fp32 FMA floor, cuDNN's
+    fp32 calls (TF32 off) and, for K6, K2 then K7 apart."""
+    import torch.nn.functional as F
+
+    from cds_mvsnet_tpu_torch.ops import kernels as K
+
+    def weights(o, c):
+        bound_w = (27 * c) ** -0.5
+        return uniform((o, c, 3, 3, 3), -bound_w, bound_w, torch.float32), uniform((o,), -0.1, 0.1, torch.float32)
+
+    def within(got, want, x, w, b, stride):
+        terms = F.conv3d(x.abs()[None], w.abs(), stride=stride, padding=1)[0] + b.abs()[:, None, None, None]
+        d = (got - want).abs()
+        return float(d.max()), bool((d <= 1e-5 * terms + 1e-7).all())
+
+    for s, (C, D, h, w) in enumerate(shapes, start=1):
+        vol = uniform((C, D, h, w), dtype=torch.float32)
+        wb0, wb1 = weights(8, C), weights(16, 8)
+        o0, o1 = K.conv3d_front_fused(vol, *wb0, *wb1)
+        torch.cuda.synchronize()
+        e0, ok0 = within(o0, K.conv3d_bn_relu_plain(vol, *wb0), vol, *wb0, 1)
+        e1, ok1 = within(o1, K.conv3d_down_plain(o0, *wb1), o0, *wb1, 2)
+        same = {"out0_equals_k2_fp32": torch.equal(o0, K.conv3d_bn_relu(vol, *wb0)),
+                "out1_equals_k7_fp32": torch.equal(o1, K.conv3d_down(o0, *wb1))}
+        Do, ho, wo = D // 2, h // 2, w // 2
+        flops = 2 * 27 * C * 8 * D * h * w + 2 * 27 * 8 * 16 * Do * ho * wo
+        record("conv3d_front_fused_fp32", s, max(e0, e1),
+               "out0 vs K2's plain, out1 vs K7's plain on out0: |d| <= 1e-5 sum|terms| + 1e-7; out0 == K2-fp32, "
+               "out1 == K7-fp32 on out0", ok0 and ok1 and all(same.values()),
+               timed(torch, lambda: K.conv3d_front_fused(vol, *wb0, *wb1), 5),
+               timed(torch, lambda: K.conv3d_front_fused_plain(vol, *wb0, *wb1), 2),
+               timed(torch, lambda: F.conv3d(F.conv3d(vol[None], *wb0, padding=1).relu_(), *wb1, stride=2,
+                                             padding=1).relu_(), 5),
+               (vol.numel() + o0.numel() + o1.numel()) * 4 + sum(t.numel() * 4 for t in (*wb0, *wb1)),
+               3 * flops, PEAK_TF32_FLOPS,
+               {"shape": [C, D, h, w], "out0_max_abs_err": e0, "out1_max_abs_err": e1, **same,
+                "fma_floor_ms": flops / PEAK_FP32_FLOPS * 1e3,
+                "k2_plus_k7_ms": timed(torch, lambda: K.conv3d_down(K.conv3d_bn_relu(vol, *wb0), *wb1), 5),
+                "device_ms": kernel_device_ms(torch, lambda: K.conv3d_front_fused(vol, *wb0, *wb1),
+                                              "conv3d_fused_tf32_kernel", reps=10),
+                "library": "two fp32 calls, TF32 off: F.conv3d+ReLU (conv0), then F.conv3d stride 2+ReLU (conv1)"})
+        del vol, o0, o1
+        x = uniform((8, D, h, w), dtype=torch.float32)
+        y = K.conv3d_down(x, *wb1)
+        torch.cuda.synchronize()
+        err, ok = within(y, K.conv3d_down_plain(x, *wb1), x, *wb1, 2)
+        flops = 2 * 27 * 8 * 16 * y[0].numel()
+        record("conv3d_down_fp32", s, err, "|d| <= 1e-5 sum|terms| + 1e-7", ok,
+               timed(torch, lambda: K.conv3d_down(x, *wb1), 5), timed(torch, lambda: K.conv3d_down_plain(x, *wb1), 3),
+               timed(torch, lambda: F.conv3d(x[None], *wb1, stride=2, padding=1).relu_(), 5),
+               (x.numel() + y.numel()) * 4 + sum(t.numel() * 4 for t in wb1), 3 * flops, PEAK_TF32_FLOPS,
+               {"shape": [8, D, h, w], "fma_floor_ms": flops / PEAK_FP32_FLOPS * 1e3,
+                "device_ms": kernel_device_ms(torch, lambda: K.conv3d_down(x, *wb1), "conv3d_down_tf32_kernel",
+                                              reps=10),
+                "library": "F.conv3d stride 2+ReLU in fp32, TF32 off"})
+        del x, y
+    torch.cuda.empty_cache()
+
+
 def protocol_stage_shapes():
     """(C, D, h, w) of each stage at the DTU protocol point: the cascade runs
     at half the 1152x1536 input under refinement."""
@@ -905,12 +1018,14 @@ def protocol_stage_shapes():
 def protocol_kernels(torch, dev, uniform, record):
     """K9 in fp32 (the fp32 route) and bf16 (its TPU twin ``warp_pallas_v6``),
     and K2 in fp32, against their plain versions at the protocol point's
-    stage shapes. Then K4 (the bf16 route's conv01) at the protocol point's
+    stage shapes, and K6 and K7 in fp32 there (rows tagged ``"point":
+    "protocol"``). Then K4 (the bf16 route's conv01) at the protocol point's
     input, rows tagged ``"point": "protocol"``."""
     from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
 
     rig = textured_plane_batch(V=2, H=DTU_H, W=DTU_W, D=D_FULL, refine=True, tz_step=4.0, seed=SEED)
     fp32_kernels(torch, dev, uniform, record, rig, protocol_stage_shapes(), (torch.float32, torch.bfloat16))
+    fp32_front_kernels(torch, uniform, tagged(record, "protocol"), protocol_stage_shapes())
     # K4 on conv01's stack of 2(V-1) images at the cascade's input (576x768)
     dynconv_kernel(torch, uniform, tagged(record, "protocol"), 2 * (V - 1), DTU_H // 2, DTU_W // 2)
 
@@ -1307,6 +1422,132 @@ def phase_routes(torch, batch, dev):
         raise RuntimeError(f"routes phase failed: {problems}")
     return ({name: counts[tag][kname] for name, (tag, kname) in ROUTE_LAUNCHES.items()},
             counts["R5"]["dynconv_branches"] // REQUESTS)
+
+
+def meets_serve_gate(cmp: dict, gate: dict) -> bool:
+    return (cmp["depth_median"] <= gate["depth_median_max"] and cmp["depth_p99"] <= gate["depth_p99_max"]
+            and cmp["photometric_confidence_median"] <= gate["conf_median_max"]
+            and cmp["photometric_confidence_p99"] <= gate["conf_p99_max"])
+
+
+def compare(torch, got, want) -> dict:
+    """Median and p99 of |got - want| of stage 3's depth and confidence."""
+    cmp = {}
+    for key in ("depth", "photometric_confidence"):
+        cmp[f"{key}_median"], cmp[f"{key}_p99"] = quantiles(torch, (got[key] - want[key]).abs())
+    return cmp
+
+
+def phase_mixed(torch, batch, dev):
+    """The mixed path at the serve point (MIXED): bf16 with
+    ``cost_dtype=torch.float32`` under each front, MIXED_REQUESTS timed
+    requests after a warm-up with every launch count set to 0, launches
+    exactly the front's; stage 3 held to the serve gate against its plain
+    twin (``kernels=False``, the same cost dtype); reported without a gate:
+    depth and confidence against the plain fp32 cascade beside the default
+    bf16 request's (what ``cost_dtype`` buys), latency per map beside the
+    default request's; one request profiled. Returns K6's and K7's fp32
+    launches (MIXED_LAUNCHES)."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model
+
+    model = build_model(ModelConfig(refine=False, ndepths=NDEPTHS), seed=SEED, device=dev)
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    kernels = all_kernels()
+
+    def request(compute_dtype=torch.bfloat16, **kw):
+        out = model(*args, compute_dtype=compute_dtype, **kw)
+        torch.cuda.synchronize()
+        return out["stage3"]
+
+    def timed_requests(**kw):
+        request(**kw)  # warm-up: cuDNN plans, the allocator
+        for k in kernels.values():
+            k.launches = 0
+        lat = []
+        for _ in range(MIXED_REQUESTS):
+            t0 = time.perf_counter()
+            out = request(**kw)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return out, lat, {name: k.launches for name, k in kernels.items()}
+
+    ref, ref_lat, _ = timed_requests()
+    twin = request(cost_dtype=torch.float32, kernels=False)
+    plain32 = request(torch.float32, kernels=False)
+    interval = float(batch["depth_values"][0, 1] - batch["depth_values"][0, 0])
+    gate = {"depth_median_max": 0.01 * interval, "depth_p99_max": 0.25 * interval, "conf_median_max": 1e-3,
+            "conf_p99_max": 0.05}
+    rows, problems = {}, []
+    for front, per in MIXED.items():
+        s3, lat, launches = timed_requests(routes=Routes({}, front), cost_dtype=torch.float32)
+        want = {name: {**MIXED_BASE, **per}.get(name, 0) * MIXED_REQUESTS for name in kernels}
+        cmp = compare(torch, s3, twin)
+        finite = all(tuple(s3[k].shape) == (1, H, W) and bool(torch.isfinite(s3[k]).all())
+                     for k in ("depth", "photometric_confidence"))
+        ok = launches == want and finite and meets_serve_gate(cmp, gate)
+        rows[front] = {"latency_ms_per_map": lat, "launches": launches, "launches_expected": want,
+                       "compare_to_plain_twin": cmp, "serve_gate": meets_serve_gate(cmp, gate),
+                       "accuracy_vs_plain_fp32": compare(torch, s3, plain32), "ok": ok}
+        if not ok:
+            problems.append(f"{front}: launches {launches == want}, finite {finite}, gate {meets_serve_gate(cmp, gate)}")
+    emit({"phase": "mixed", "requests": MIXED_REQUESTS, "depth_interval_mm": interval, "gate": gate,
+          "default_latency_ms_per_map": ref_lat, "default_accuracy_vs_plain_fp32": compare(torch, ref, plain32),
+          "mixed_plain_twin_vs_plain_fp32": compare(torch, twin, plain32), "fronts": rows, "ok": not problems})
+    emit({"phase": "mixed_profile", "front": "pallasf",
+          **device_profile(torch, lambda: request(routes=Routes({}, "pallasf"), cost_dtype=torch.float32))})
+    if problems:
+        raise RuntimeError(f"mixed phase failed: {problems}")
+    return {name: rows[front]["launches"][kname] for name, (front, kname) in MIXED_LAUNCHES.items()}
+
+
+def phase_fp32_routed(torch, dev) -> None:
+    """One fp32 request under routes at the DTU protocol point (1152x1536,
+    refinement: the cascade at 576x768; FP32_ROUTED: K9 at every stage, K6
+    and K2 at O=16 in fp32), MIXED_REQUESTS timed after a warm-up with every
+    launch count set to 0, launches exactly FP32_ROUTED's; stage 3 held to
+    the serve gate against the fp32 default request on the same weights and
+    batch, latency per map beside the default's."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model, to_tensors
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    model = build_model(ModelConfig(refine=True, ndepths=NDEPTHS), seed=SEED, device=dev)
+    b = to_tensors(textured_plane_batch(V=V, H=DTU_H, W=DTU_W, D=D_FULL, refine=True, seed=SEED), dev)
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    kernels = all_kernels()
+    warp, front, per = FP32_ROUTED
+    routes = Routes(warp, front)
+
+    def timed_requests(routes):
+        model(*args, compute_dtype=torch.float32, routes=routes)  # warm-up
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        lat = []
+        for _ in range(MIXED_REQUESTS):
+            t0 = time.perf_counter()
+            out = model(*args, compute_dtype=torch.float32, routes=routes)["stage3"]
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return out, lat, {name: k.launches for name, k in kernels.items()}
+
+    ref, ref_lat, _ = timed_requests(None)
+    s3, lat, launches = timed_requests(routes)
+    want = {name: per.get(name, 0) * MIXED_REQUESTS for name in kernels}
+    interval = float(b["depth_values"][0, 1] - b["depth_values"][0, 0])
+    gate = {"depth_median_max": 0.01 * interval, "depth_p99_max": 0.25 * interval, "conf_median_max": 1e-3,
+            "conf_p99_max": 0.05}
+    cmp = compare(torch, s3, ref)
+    finite = all(bool(torch.isfinite(s3[k]).all()) for k in ("depth", "photometric_confidence"))
+    ok = launches == want and finite and meets_serve_gate(cmp, gate)
+    emit({"phase": "fp32_routed", "warp": warp, "front": front, "shape": [1, V, DTU_H, DTU_W, 3],
+          "requests": MIXED_REQUESTS, "latency_ms_per_map": lat, "default_latency_ms_per_map": ref_lat,
+          "launches": launches, "launches_expected": want, "depth_interval_mm": interval,
+          "compare_to_default": cmp, "gate": gate, "ok": ok})
+    del model, b, args
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"fp32 routed request: launches {launches == want}, finite {finite}, gate {cmp}")
 
 
 def feature_route_checks(torch, model, args, routes, in_serve_gate: bool) -> dict:
@@ -2083,7 +2324,10 @@ def main() -> int:
     launches.update(phase_serve(torch, batch, dev))
     route_launches, feature_route_launches = phase_routes(torch, batch, dev)
     launches.update(route_launches)
+    launches.update(phase_mixed(torch, batch, dev))
     del batch
+    torch.cuda.empty_cache()
+    phase_fp32_routed(torch, dev)
     torch.cuda.empty_cache()
     train_launches, train_secs = phase_train(torch, train_batch, dev)
     launches.update(train_launches)
@@ -2099,8 +2343,9 @@ def main() -> int:
     kernels = []
     for name, source_replaces in KERNEL_INFO.items():
         source, replaces = source_replaces
-        # the main path's shapes; K5's step also runs the GT warps at D=1
-        points = {None, "gt"} if name in TRAIN_KERNEL_NAMES else {None}
+        # the main path's shapes; K5's step also runs the GT warps at D=1;
+        # K6 and K7 in fp32 run on the mixed path
+        points = {None, "gt"} if name in TRAIN_KERNEL_NAMES else {"mixed"} if name in MIXED_KERNEL_NAMES else {None}
         rows = [r for r in results[name] if r.get("point") in points]
         # per-request totals at the serve shapes: K1 runs V-1 times per
         # stage; per-map totals at the protocol point: K9 runs V-1 times per
@@ -2121,13 +2366,14 @@ def main() -> int:
             "per": ("step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES
                     else "probe run" if name in PROBE_NAMES else "request"),
             "per_stage": [{k: r[k] for k in ("point", "stage", "ms", "plain_ms", "library_ms", "bound_ms",
-                                             "max_abs_err", "k2_plus_k7_ms", "device_ms", "main_device_ms") if k in r}
+                                             "max_abs_err", "k2_plus_k7_ms", "device_ms", "main_device_ms",
+                                             "fma_floor_ms") if k in r}
                           for r in rows],
         })
         for point in sorted({r.get("point") for r in results[name]} - points):
             kernels[-1][f"{point}_per_stage"] = [
                 {k: r[k] for k in ("layer", "stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                                   "device_ms", "library_device_ms") if k in r}
+                                   "device_ms", "library_device_ms", "k2_plus_k7_ms", "fma_floor_ms") if k in r}
                 for r in results[name] if r.get("point") == point]
         if name in PROBE_NAMES:  # the probes run only in their tools
             kernels[-1]["launches_per_map"] = 0

@@ -11,7 +11,10 @@ card tolerance of ``conv3d_bn_relu_plain`` (``|d| <= 1e-5 sum|terms| +
 1e-7``, ``chip_smoke.py`` and ``tests/test_torch_cuda.py``); one TF32 product
 (hi·hi) and two (hi·hi + hi·lo) must not, which is why the kernel runs three.
 The fp32 cascade with the model at conv0 must pass the serve gate against
-the plain fp32 path.
+the plain fp32 path. K7 in fp32 (``conv3d_down_tf32_kernel``) and K6's
+conv1 run the same three products at stride 2 (``down_step`` in
+``csrc/conv3d_tf32.cuh``): the model at stride 2 holds K2-fp32's tolerance
+against ``conv3d_down_plain`` and one or two products miss it.
 """
 
 from __future__ import annotations
@@ -47,20 +50,21 @@ def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_rna(x - hi)
 
 
-def tensor_core_model(vol, w, b, products=("hh", "hl", "lh")) -> torch.Tensor:
-    """K2-fp32's arithmetic: the chosen TF32 products (``h``: hi, ``l``: lo;
-    activation first, weight second) summed in fp32; bias, ReLU."""
+def tensor_core_model(vol, w, b, products=("hh", "hl", "lh"), stride: int = 1) -> torch.Tensor:
+    """K2-fp32's arithmetic (K7-fp32's at ``stride=2``): the chosen TF32
+    products (``h``: hi, ``l``: lo; activation first, weight second) summed
+    in fp32; bias, ReLU."""
     xs, ws = split(vol.float()), split(w)
     part = {"h": 0, "l": 1}
-    y = sum(F.conv3d(xs[part[a]][None], ws[part[k]], padding=1)[0] for a, k in products)
+    y = sum(F.conv3d(xs[part[a]][None], ws[part[k]], stride=stride, padding=1)[0] for a, k in products)
     return torch.relu(y + b[:, None, None, None])
 
 
-def excess_over_tolerance(got, vol, w, b) -> float:
+def excess_over_tolerance(got, vol, w, b, stride: int = 1) -> float:
     """max(|d| - (1e-5 sum|terms| + 1e-7)) against the plain version: <= 0
     within K2-fp32's tolerance."""
-    want = K.conv3d_bn_relu_plain(vol, w, b)
-    terms = F.conv3d(vol.abs()[None], w.abs(), padding=1)[0] + b.abs()[:, None, None, None]
+    want = K.conv3d_bn_relu_plain(vol, w, b, stride=stride)
+    terms = F.conv3d(vol.abs()[None], w.abs(), stride=stride, padding=1)[0] + b.abs()[:, None, None, None]
     return float(((got - want).abs() - (1e-5 * terms + 1e-7)).max())
 
 
@@ -106,6 +110,29 @@ def test_fewer_products_miss_the_tolerance(C, products):
     vol, w, b = rig(C, C)
     assert excess_over_tolerance(tensor_core_model(vol, w, b, products), vol, w, b) > 0
     assert excess_over_tolerance(tensor_core_model(vol, w, b), vol, w, b) <= 0
+
+
+@pytest.mark.parametrize("C,O", [(8, 16), (16, 8), (12, 16)])
+def test_stride_two_three_products_meet_the_tolerance(C, O):
+    """K7-fp32's arithmetic: the three products at stride 2 within K2-fp32's
+    tolerance of ``conv3d_down_plain``, on an input of even D, h, w."""
+    vol, w, b = rig(C + O + 1, C, O)
+    vol = vol[:, :, :, :36].contiguous()
+    assert excess_over_tolerance(tensor_core_model(vol, w, b, stride=2), vol, w, b, stride=2) <= 0
+
+
+@pytest.mark.parametrize("products", [("hh",), ("hh", "hl")])
+def test_stride_two_fewer_products_miss_the_tolerance(products):
+    """One TF32 product, or two, miss K7-fp32's tolerance where outputs near
+    0 come from large terms of both signs (inputs spanning 2^8, weights at
+    4x the usual bound, no bias); the three products hold it."""
+    vol, w, _ = rig(5, 8, 16)
+    vol = (vol[:, :, :, :36] * torch.exp2(torch.from_numpy(
+        np.random.default_rng(6).integers(-4, 5, (8, 6, 12, 36)).astype(np.float32)))).contiguous()
+    w = w * 4
+    b = torch.zeros(16)
+    assert excess_over_tolerance(tensor_core_model(vol, w, b, products, stride=2), vol, w, b, stride=2) > 0
+    assert excess_over_tolerance(tensor_core_model(vol, w, b, stride=2), vol, w, b, stride=2) <= 0
 
 
 def test_fp32_cascade_with_the_model_passes_the_serve_gate():

@@ -806,12 +806,11 @@ def test_conv3d_down_plan_matches_card(gen, shape):
 def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     """K6 on shapes no tile divides: out0 against K2's plain version, out1
     against K7's plain version on the kernel's own out0 (so a flipped ulp of
-    out0 does not propagate); and K6's out1 is exactly K7's fp32 form (the
-    direct body, whose FMAs K6's conv1 repeats) on out0's values, rounded to
-    out0's dtype, and in bf16 out0 what K2 computes (their shared body,
-    conv3d_mma.cuh), so every voxel of out0 is stored once, by the block
-    that owns it. In fp32 K6's conv0 is the direct fp32 body and K2 the
-    3xTF32 one: both within the tolerance."""
+    out0 does not propagate); and K6's out1 is exactly K7-fp32 (whose 3xTF32
+    step K6's conv1 runs) on out0's values, rounded to out0's dtype, and out0
+    exactly what K2 computes in that dtype (their shared bodies,
+    conv3d_mma.cuh in bf16, conv3d_tf32.cuh in fp32), so every voxel of out0
+    is stored once, by the block that owns it."""
     vol, w0, b0 = conv_rig(gen, C, 8, dtype, shape)
     w1 = uniform(gen, (16, 8, 3, 3, 3), -(27 * 8) ** -0.5, (27 * 8) ** -0.5, torch.float32)
     b1 = uniform(gen, (16,), -0.1, 0.1, torch.float32)
@@ -822,8 +821,89 @@ def test_conv3d_front_fused_matches_plain(gen, dtype, C, shape):
     assert conv_close(out0, K.conv3d_bn_relu_plain(vol, w0, b0), vol, w0, b0)
     assert conv_close(out1, K.conv3d_down_plain(out0, w1, b1), out0, w1, b1, stride=2)
     assert torch.equal(out1, K.conv3d_down(out0.float(), w1, b1).to(dtype))
-    if dtype == torch.bfloat16:
-        assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0))
+    assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0))
+
+
+@pytest.mark.parametrize("C,shape", [(12, (6, 10, 46)), (3, (4, 6, 34)), (40, (2, 8, 32)), (8, (2, 2, 2)),
+                                     (8, (12, 20, 66))])
+def test_conv3d_front_fused_fp32_any_channels(gen, C, shape):
+    """K6 in fp32 at a ragged chunk of channels (padded with zeros, as
+    K2-fp32 pads them), at its largest C (40: five chunks of fragments), on
+    a volume smaller than a tile and on one of several tiles a block: out0
+    equal to K2-fp32, out1 to K7-fp32 on out0, and two runs identical."""
+    vol, w0, b0 = conv_rig(gen, C, 8, torch.float32, shape)
+    w1, b1 = conv_rig(gen, 8, 16, torch.float32)[1:]
+    out0, out1 = K.conv3d_front_fused(vol, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    assert conv_close(out0, K.conv3d_bn_relu_plain(vol, w0, b0), vol, w0, b0)
+    assert torch.equal(out0, K.conv3d_bn_relu(vol, w0, b0))
+    assert torch.equal(out1, K.conv3d_down(out0, w1, b1))
+    again = K.conv3d_front_fused(vol, w0, b0, w1, b1)
+    assert torch.equal(out0, again[0]) and torch.equal(out1, again[1])
+
+
+def test_conv3d_front_fused_fp32_refuses_wide_volumes(gen):
+    vol, w0, b0 = conv_rig(gen, 48, 8, torch.float32, (2, 4, 4))
+    w1, b1 = conv_rig(gen, 8, 16, torch.float32)[1:]
+    with pytest.raises(ValueError, match="C <= 40"):
+        K.conv3d_front_fused(vol, w0, b0, w1, b1)
+
+
+@pytest.mark.parametrize("C,O", [(8, 16), (16, 16), (16, 8), (12, 16), (3, 16), (28, 16), (8, 8)])
+@pytest.mark.parametrize("shape", [(6, 18, 72), (4, 10, 136), (2, 2, 8), (8, 12, 50), (10, 20, 258), (2, 4, 6),
+                                   (6, 10, 46)])
+def test_conv3d_down_fp32_tiles(gen, C, O, shape):
+    """K7 in fp32 (3xTF32) on its 2x4x32 output tiles (2x2x32 where its
+    fragments exceed two chunk-n-tiles: C > 8 at O = 16): w a multiple of 4
+    (16-byte loads) with partial tiles along every axis, w not a multiple
+    of 4 (four-byte loads), volumes smaller than a tile, a ragged chunk of
+    channels; within K2-fp32's tolerance of the plain version, and two runs
+    identical."""
+    vol, w, b = conv_rig(gen, C, O, torch.float32, shape)
+    before = K.conv3d_down.launches
+    got = K.conv3d_down(vol, w, b)
+    torch.cuda.synchronize()
+    assert K.conv3d_down.launches == before + 1
+    assert tuple(got.shape) == (O, *(n // 2 for n in shape))
+    assert conv_close(got, K.conv3d_down_plain(vol, w, b), vol, w, b, stride=2)
+    assert torch.equal(got, K.conv3d_down(vol, w, b))
+
+
+@pytest.mark.parametrize("C,O", [(8, 16), (16, 8), (12, 16)])
+def test_conv3d_down_fp32_cancellation(gen, C, O):
+    """K7-fp32 where outputs near 0 come from large terms of both signs
+    (inputs spanning 2^8, weights at 4x the usual bound, no bias): the three
+    TF32 products hold the tolerance, one TF32 product does not."""
+    vol = uniform(gen, (C, 6, 12, 40), dtype=torch.float32) * torch.exp2(
+        torch.randint(-4, 5, (C, 6, 12, 40), generator=gen, device="cuda").float())
+    bound = 4 * (27 * C) ** -0.5
+    w = uniform(gen, (O, C, 3, 3, 3), -bound, bound, torch.float32)
+    b = torch.zeros(O, device="cuda")
+    want = K.conv3d_down_plain(vol, w, b)
+    assert conv_close(K.conv3d_down(vol, w, b), want, vol, w, b, stride=2)
+    one_tf32 = torch.relu(torch.nn.functional.conv3d(tf32(vol)[None], tf32(w), stride=2, padding=1)[0])
+    assert not conv_close(one_tf32, want, vol, w, b, stride=2)
+
+
+@pytest.mark.parametrize("O,C,shape", [(16, 8, (48, 216, 288)), (16, 8, (32, 432, 576)), (16, 8, (8, 864, 1152)),
+                                       (16, 8, (48, 144, 192)), (16, 12, (6, 10, 46)), (8, 16, (6, 10, 46))])
+def test_conv3d_down_tf32_plan_matches_card(gen, O, C, shape):
+    """K7-fp32's launcher plan (``conv3d_down_tf32_plan``) against the CPU
+    mirror (``ops/kernels/conv3d.py::launch_plan_fp32``): the mixed path's
+    serve shapes and the protocol's stage 1 at one block an SM."""
+    import ctypes
+
+    from cds_mvsnet_tpu_torch.ops.kernels import _build
+    from cds_mvsnet_tpu_torch.ops.kernels import conv3d as k7
+    from cds_mvsnet_tpu_torch.ops.kernels._launch import I, P, entry
+
+    D, h, w = shape
+    out = (ctypes.c_int * 8)()
+    lib, fn = entry("conv3d", "conv3d_down_tf32_plan", [I] * 5 + [P])
+    _build.check(lib, fn(O, C, D, h, w, ctypes.cast(out, P)), "conv3d_down_tf32_plan")
+    plan = k7.launch_plan_fp32(C, D, h, w, O)
+    assert tuple(out[:3]) == plan["tile"] and out[3] == plan["tiles"] and out[7] == plan["shared_bytes"]
+    assert out[6] == 1 and out[4] == min(plan["tiles"], torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 @pytest.mark.parametrize("C", [8, 16, 32])
@@ -940,6 +1020,72 @@ def test_routed_forward_makes_no_host_sync(gen):
     assert bool(torch.isfinite(out["refined_depth"]).all())
     after = [k.launches for k in (K.conv3d_front_fused, K.warp_sim_coords, K.warp_sim_coords_batched, K.warp_sim)]
     assert [a - c for a, c in zip(after, counts)] == [3, 2, 1, 2]
+
+
+# the mixed cascade's launches a request at V = 3 beside K1's 6 and K4's 1
+MIXED_FRONTS = {"pallas": {"conv3d_bn_relu": 3}, "pallasf": {"conv3d_front_fused": 3},
+                "pallasf3": {"conv3d_front_fused": 3, "conv3d_bn_relu": 3},
+                "pallas2": {"conv3d_bn_relu": 3, "conv3d_down": 3},
+                "pallas3": {"conv3d_bn_relu": 6, "conv3d_down": 3}, "s2d": {}}
+
+
+@pytest.mark.parametrize("front", list(MIXED_FRONTS))
+def test_mixed_cascade_under_each_front(gen, front):
+    """bf16 with ``cost_dtype=torch.float32`` under each front: K1 and K4 in
+    bf16, the front's kernels in fp32 (K2, K6, K7), K3 not at all (an fp32
+    volume takes the plain tail); stage 3 within the serve gate of its plain
+    twin (``kernels=False``, the same cost dtype): depth median 1 % and p99
+    25 % of the plane interval, confidence median 1e-3 and p99 0.05."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model, to_tensors
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    model = build_model(ModelConfig(refine=False, ndepths=(16, 8, 8)), seed=0, device="cuda")
+    b = to_tensors(textured_plane_batch(V=3, H=128, W=160, D=32, seed=0), "cuda")
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    routes = Routes({}, front)
+    kernels = {k.__name__: k for k in (*K.KERNELS, *K.FP32_KERNELS, *K.ROUTE_KERNELS)}
+    before = {name: k.launches for name, k in kernels.items()}
+    got = model(*args, compute_dtype=torch.bfloat16, cost_dtype=torch.float32, routes=routes)["stage3"]
+    torch.cuda.synchronize()
+    launches = {name: k.launches - before[name] for name, k in kernels.items()}
+    want = {"warp_entropy": 6, "dynconv_branches": 1, **MIXED_FRONTS[front]}
+    assert launches == {name: want.get(name, 0) for name in kernels}
+    plain = model(*args, compute_dtype=torch.bfloat16, cost_dtype=torch.float32, kernels=False)["stage3"]
+    interval = float(b["depth_values"][0, 1] - b["depth_values"][0, 0])
+    d = (got["depth"] - plain["depth"]).abs().flatten() / interval
+    c = (got["photometric_confidence"] - plain["photometric_confidence"]).abs().flatten()
+    assert float(d.median()) <= 0.01 and float(torch.quantile(d, 0.99)) <= 0.25
+    assert float(c.median()) <= 1e-3 and float(torch.quantile(c, 0.99)) <= 0.05
+    assert got["depth"].dtype == torch.float32 and bool(torch.isfinite(got["depth"]).all())
+
+
+def test_fp32_routes_on_the_card(gen):
+    """An fp32 request under ``v6`` warps and the ``pallasf3`` front: K9 at
+    every stage and view, K6 and K2 at O = 16 in fp32, no K4; the serve gate
+    against the fp32 default request. A fused warp raises."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import Routes, build_model, to_tensors
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    model = build_model(ModelConfig(refine=True, ndepths=(16, 8, 8)), seed=0, device="cuda")
+    b = to_tensors(textured_plane_batch(V=3, H=256, W=320, D=32, refine=True, seed=0), "cuda")
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    kernels = {k.__name__: k for k in (*K.KERNELS, *K.FP32_KERNELS, *K.ROUTE_KERNELS)}
+    base = model(*args, compute_dtype=torch.float32)["stage3"]
+    before = {name: k.launches for name, k in kernels.items()}
+    got = model(*args, compute_dtype=torch.float32, routes=Routes({1: "v6", 2: "v6", 3: "v6"}, "pallasf3"))["stage3"]
+    torch.cuda.synchronize()
+    launches = {name: k.launches - before[name] for name, k in kernels.items()}
+    want = {"warp_gather": 6, "conv3d_front_fused": 3, "conv3d_bn_relu": 3}
+    assert launches == {name: want.get(name, 0) for name in kernels}
+    interval = float(b["depth_values"][0, 1] - b["depth_values"][0, 0])
+    d = (got["depth"] - base["depth"]).abs().flatten() / interval
+    c = (got["photometric_confidence"] - base["photometric_confidence"]).abs().flatten()
+    assert float(d.median()) <= 0.01 and float(torch.quantile(d, 0.99)) <= 0.25
+    assert float(c.median()) <= 1e-3 and float(torch.quantile(c, 0.99)) <= 0.05
+    with pytest.raises(ValueError, match="1592-1600"):
+        model(*args, compute_dtype=torch.float32, routes=Routes({1: "v8"}))
 
 
 def bits(t):
