@@ -89,9 +89,18 @@ def resolve_device(device) -> torch.device:
 
 def strict_fp32() -> None:
     """Keep fp32 convolutions and products in full fp32 on the card (cuDNN
-    turns TF32 on by default)."""
+    turns TF32 on by default), and hold cuDNN to deterministic algorithms,
+    chosen without benchmarking, so that a request or a train step repeats
+    bit for bit as the JAX package's do on XLA: left free, cuDNN picks an
+    fp32 algorithm whose result differs between two requests of one process.
+    Not ``torch.use_deterministic_algorithms``: that global switch raises
+    for operations with no deterministic form; the port's differentiable
+    gathers repeat by themselves (``ops/index.py``, K5's fixed-point
+    ``d_src``)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def pairwise_epipoles(ref_cams: torch.Tensor, src_cams: torch.Tensor):

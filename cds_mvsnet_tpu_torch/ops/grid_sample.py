@@ -9,12 +9,16 @@ multiply by the mask: a far-off projection can give non-finite coordinates
 into autograd's backward. Bounds are tested on the float corners, as the
 kernels test them: the int conversion of a NaN or huge coordinate is left
 to the device (x86 gives the most negative int), so only the clamped gather
-index is taken from it.
+index is taken from it. The corners are rows of the flattened source, taken
+by ``ops.index.index_select``, whose gradient repeats on the card
+(autograd's ``gather`` backward adds with atomics there).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .index import index_select
 
 __all__ = ["grid_sample_pixel"]
 
@@ -34,13 +38,14 @@ def grid_sample_pixel(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     ty = (y - y0).to(src.dtype)
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
-    src_flat = src.reshape(B, H * W, C)
+    src_rows = src.reshape(B * H * W, C)
+    base = torch.arange(B, device=src.device)[:, None] * (H * W)
 
     def corner(dx, dy, w):
         xf, yf = x0 + dx, y0 + dy
         inb = (xf >= 0) & (xf <= W - 1) & (yf >= 0) & (yf <= H - 1)
         idx = (y0i + dy).clamp(0, H - 1) * W + (x0i + dx).clamp(0, W - 1)
-        vals = torch.gather(src_flat, 1, idx[:, :, None].expand(-1, -1, C))
+        vals = index_select(src_rows, 0, (idx + base).reshape(-1)).reshape(B, -1, C)
         return vals * torch.where(inb, w, torch.zeros_like(w))[:, :, None]
 
     out = (

@@ -42,16 +42,26 @@ K1's), and its cotangent arrives the same way in 16-byte streaming loads;
 chunk's ``d_ref`` partial sums in registers and writes them to an fp32
 scratch ``(chunks, C, h, w)``; a finishing kernel sums the partials in
 chunk order and rounds them to bf16, so ``d_ref`` does not vary from run to
-run, and rounds ``d_src``. ``d_src`` takes ``w_k·g·ref`` by 16-byte fp32
-atomics into a buffer the launcher zeroes; at about 80 G a second on the
-H100 they set the pace of a kernel that adds every term (PERF.md). But a
-pixel's projection moves by a fraction
-of a source pixel from one plane to the next, so each lane sums its four
-corners in registers while they stay put, adds them to ``d_src`` only when
-they move, and at the chunk's end hands the corners it shares with the
-pixel to its right to that pixel's lane. The atomics' order, and so the
-last bits of ``d_src``, vary from run to run: the card check compares with
-the plain version within a tolerance.
+run. ``d_src`` takes ``w_k·g·ref`` from every pixel tile whose projections
+land on a source pixel, so its sums cross blocks; global atomics, at about
+80 G a second on the H100, set the pace of a kernel that adds every term
+(PERF.md). But a pixel's projection moves by a fraction of a source pixel
+from one plane to the next, so each lane sums its four corners in registers
+while they stay put, adds them to ``d_src`` only when they move, and at the
+chunk's end hands the corners it shares with the pixel to its right to that
+pixel's lane. The adds are in fixed point, so that ``d_src`` is the same in
+every run, as the JAX package's XLA gather VJP is: a first pass reduces
+``max|g_in_prod|``, ``max|g_sim|`` and ``max|ref|`` on the card, which
+bound every source value's sum of ``|terms|`` by ``B = D·h·w·(max|g_in_prod|
++ max|g_sim|)·max|ref|``; each flushed fp32 sum is scaled by ``2^S``, ``S =
+61 − ilogb(B)`` (the largest with ``B·2^S < 2^62``, chosen on the card with
+no host sync), rounded to an int64 and added with 64-bit integer atomics,
+whose order does not change the bits; the finishing kernel turns each int64
+to fp32 (one rounding), scales it by ``2^-S`` and rounds it to bf16
+(``tests/test_torch_k5_fixed_point.py`` models the arithmetic in plain
+PyTorch). Non-finite inputs or
+sums give a NaN ``d_src``. The card check compares with the plain version
+within a tolerance: the plain version's fp32 ``index_add_`` rounds each add.
 """
 
 from __future__ import annotations
@@ -201,7 +211,8 @@ def warp_sim_backward(src, ref, depth, rt, g_in_prod, g_sim):
         return warp_sim_backward_plain(src, ref, depth, rt, g_in_prod, g_sim)
     require(src.data_ptr() % 16 == 0, "warp_sim_backward: src must be 16-byte aligned")
     chunks = launch_plan(C, D, h, w, "backward")["chunks"]
-    acc = torch.empty((H, W, C), dtype=torch.float32, device=src.device)  # zeroed by the launcher
+    # d_src's fixed-point sums and the launcher's four 32-bit words, zeroed by the launcher
+    acc = torch.empty((H * W * C + 2,), dtype=torch.int64, device=src.device)
     part = torch.empty((chunks, C, h, w), dtype=torch.float32, device=src.device)
     d_src = torch.empty((H, W, C), dtype=torch.bfloat16, device=src.device)
     d_ref = torch.empty((C, h, w), dtype=torch.bfloat16, device=src.device)

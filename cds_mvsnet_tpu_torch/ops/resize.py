@@ -9,7 +9,8 @@ so both packages pick the same source pixels:
   in/out - 0.5, 0)`` with clamp-to-edge;
 - ``linear`` with ``align_corners=True``: ``src = i * (in-1)/(out-1)``.
 
-Linear interpolation is separable and applied one axis at a time.
+Linear interpolation is separable and applied one axis at a time. The rows
+are taken by ``ops.index.index_select``, whose gradient repeats on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .index import index_select
 
 __all__ = ["resize_nearest", "resize_linear", "upsample2x_nearest"]
 
@@ -49,12 +52,12 @@ def _resize_dim(x: torch.Tensor, out_size: int, dim: int, mode: str) -> torch.Te
     if in_size == out_size:
         return x
     if mode == "nearest":
-        return torch.index_select(x, dim, _nearest_indices(in_size, out_size, x.device))
+        return index_select(x, dim, _nearest_indices(in_size, out_size, x.device))
     lo, hi, t = _linear_weights(in_size, out_size, mode == "linear_ac", x.device)
     shape = [1] * x.ndim
     shape[dim] = out_size
     tw = t.reshape(shape).to(x.dtype)
-    return torch.index_select(x, dim, lo) * (1 - tw) + torch.index_select(x, dim, hi) * tw
+    return index_select(x, dim, lo) * (1 - tw) + index_select(x, dim, hi) * tw
 
 
 def _resize(x, out_shape, dims, mode):

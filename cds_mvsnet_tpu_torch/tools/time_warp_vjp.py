@@ -20,8 +20,9 @@ phase:
   16/32/432x576, 8/8/864x1152), forward only.
 
 A time is the device time of one call (every kernel and memset it runs:
-the backward of sources before this design also a ``torch.zeros`` fill of
-its fp32 ``d_src``) under ``torch.profiler``, the median over ``--rounds``
+the one-pass backward of older sources also a ``torch.zeros`` fill of
+its fp32 ``d_src``; the fixed-point backward its first pass, the maxima
+that set its scale, too) under ``torch.profiler``, the median over ``--rounds``
 rounds of ``--reps`` calls, the sources alternating (A B, B A, ...);
 ``main_ms`` is the main kernel's alone, ``bound_ms`` the least time of the
 call as ``chip_smoke.py`` counts it. One JSON line per source, kernel and
@@ -31,7 +32,8 @@ registers; the launcher's plan entry, where the source has one, adds its
 own). Checks: ``in_prod`` equal to the first source's bit for bit, its values
 unequal to the plain version's counted, ``sim`` within the smoke's tolerance; the
 backward's ``d_src`` and ``d_ref`` within the card tests' tolerance of the
-plain backward, ``d_ref`` identical in two runs, and its recomputed warped
+plain backward, whether ``d_src`` and ``d_ref`` are each identical in two
+runs (the fixed-point ``d_src`` must be), and its recomputed warped
 values (``d_ref`` of a one-plane call with ``g_in_prod = 1``, ``g_sim =
 0``, at the first, middle and last plane) equal to the first source's and
 the plain version's bit for bit.
@@ -136,11 +138,13 @@ def backward_runner(lib, src, ref, hyp, rt, g_ip, g_sim):
     """A closure launching ``lib``'s backward on the case, its ``d_src`` and
     ``d_ref``; the C entry of sources before the plane chunks takes a zeroed
     fp32 ``d_src`` and no scratch, and the closure zeroes it as that
-    wrapper did."""
+    wrapper did. The accumulator holds ``H·W·C + 2`` int64: the fixed-point
+    sums and words where the source has them, and room for the fp32 sums of
+    older sources."""
     H, W, C = src.shape
     _, h, w = ref.shape
     D = hyp.shape[0]
-    acc = torch.zeros((H, W, C), dtype=torch.float32, device=src.device)
+    acc = torch.zeros((H * W * C + 2,), dtype=torch.int64, device=src.device)
     d_src = torch.empty((H, W, C), dtype=torch.bfloat16, device=src.device)
     d_ref = torch.empty((C, h, w), dtype=torch.bfloat16, device=src.device)
     head = [P(t.data_ptr()) for t in (src, ref, hyp)] + [int(hyp.ndim == 3)]

@@ -17,6 +17,10 @@ Counterpart of ``cds_mvsnet_tpu/training/train_step.py::make_train_step``.
   its share of the global loss, and the gradients are summed over the ranks
   before the update (one all-reduce of every leaf's gradient), so every
   rank applies the same update to the same weights.
+- On the card the step repeats bit for bit: the set-up holds cuDNN to
+  deterministic algorithms (``models.cds_mvsnet.strict_fp32``), K5 sums
+  ``d_src`` in fixed point, and the plain warp's and the resizes' gathers
+  differentiate in a fixed order (``ops/index.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import TrainConfig
-from ..models.cds_mvsnet import CDSMVSNet
+from ..models.cds_mvsnet import CDSMVSNet, strict_fp32
 from ..models.layers import StatsCollector
 from .loss import final_loss
 
@@ -61,6 +65,8 @@ class TrainStep:
         self.kernels = kernels
         self.group = group
         self.compute_dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[cfg.compute_dtype]
+        if next(model.parameters()).is_cuda:
+            strict_fp32()
         self.reset_optimizer()
 
     def reset_optimizer(self) -> None:

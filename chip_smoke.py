@@ -39,7 +39,11 @@ Phases, one JSON line each:
    cuDNN's fp32 calls with TF32 off and, for K6, K2 then K7 apart, K6's out0
    and out1 held bit for bit to K2 and K7 in fp32; K1-K4 again at
    the stream point's shapes (C/D/h x w = 32/128/120x160, 16/32/240x320,
-   8/8/480x640, K4 on 8 frames at 480x640); P1 and P2, the probes' kernels,
+   8/8/480x640, K4 on 8 frames at 480x640); K1-K3 at the Tanks and Temples
+   stage shapes of scripts/tt_eval.sh's buckets (Family's 32/48/272x480,
+   16/32/544x960, 8/8/1088x1920, and stage 1 of the 896x1600 and 544x960
+   buckets, 224x400 and 136x240) and K4 on conv01 over 18 images of each
+   bucket (rows tagged ``"point": "tt"`` with their bucket); P1 and P2, the probes' kernels,
    at their probes' inputs (and P1 on a 192 KB band), bit for bit;
    probes: the probes' entry points (``cds_mvsnet_tpu_torch.tools.
    probe_lane_slice`` and ``probe_gather16``), the path of P1 and P2, with
@@ -80,7 +84,9 @@ Phases, one JSON line each:
    the kernel path are held against the plain bf16 path from the same
    weights (the gate) and the plain fp32 path (reported), and each of that
    step's K5 calls, forward and backward, against the plain versions on its
-   own inputs (the gate); one more step runs under ``torch.profiler``;
+   own inputs (the gate); a second kernel-path step from the same weights
+   must equal the first bit for bit (the gate); one more step runs under
+   ``torch.profiler``;
    train_cli: the train CLI (``cds_mvsnet_tpu_torch.cli.train_cli.main``,
    in this process) for one epoch on a synthetic DTU training scan in Yao
    Yao's layout written to disk (5 views of a textured plane, 3 ref views x
@@ -104,6 +110,16 @@ Phases, one JSON line each:
    forward on the same batch, the host synchronisations it makes, then the
    ``normal`` fusion with loose thresholds, ``fuse_view`` on the card
    against the CPU, and one profiled bf16 run for the device's busy share;
+   tt: the Family row of ``scripts/tt_eval.sh`` (TT_FLAGS: 10 views, 256
+   depths, no refinement, 1088x1920, normal fusion with confidence 0.1, 4
+   views, 1 px) through ``test_cli.main`` in bf16 on a synthetic scene in
+   the tt layout (11 views of a sphere_scene at 1920x1080, T&T's
+   four-number depth line, 10 sources a view), on the seeded weights fitted
+   TT_FIT_STEPS bf16 steps on a small sphere scene: launches per map exactly K1
+   27, K2 3, K3 3, K4 1, every other kernel 0, each written depth against an
+   in-process forward (the product's gate), fused points > 0, view 0's
+   ``fuse_view`` on the card against the CPU; maps/s, the fusion's wall
+   time and the peak device memory;
 6. stream: ``eval/streaming.py`` at its defaults (480x640, window 5, 512
    planes split 128/32/8, temperature 0.01, seeded random weights) on a
    12-view ``sphere_scene`` pushed in order, depth range 425-937 from the
@@ -117,7 +133,8 @@ Phases, one JSON line each:
    ``test_cli --dataset general`` at 864x1152 in bf16 -> normal fusion ->
    ``score_points`` and ``eval_depth_map`` against the scene's geometry);
 8. summary: one ``{"kernels": [...]}`` line (K1-K9, K6 and K7 in fp32 with
-   the mixed path's launches, P1 and P2), the card line, and last
+   the mixed path's launches, P1 and P2; rows of other points under
+   ``<point>_per_stage``, the T&T rows as ``tt_per_stage``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Nothing falls back: no GPU
@@ -174,6 +191,26 @@ CUSTOM_FLAGS = ["--dataset", "general", "--numdepth", str(D_FULL), "--max_h", st
                 "--num_view", str(V), "--no_refinement", "--filter_method", "normal", "--thres_view", "2",
                 "--thres_disp", "50.0"]
 
+# the Tanks and Temples point: scripts/tt_eval.sh's Family row (10 views,
+# 256 depths, no refinement, 1088x1920, normal fusion with confidence 0.1, 4
+# consistent views, 1 px) through test_cli on a synthetic scene in the tt
+# layout: 11 views of a sphere_scene at 1920x1080 (the reader pads 4 edge
+# rows above and below to 1088), each with 10 sources
+TT_H, TT_W, TT_SRC_H, TT_VIEWS, TT_SOURCES, TT_D = 1088, 1920, 1080, 11, 9, 256
+TT_FLAGS = ["--dataset", "tt", "--no_refinement", "--interval_scale", "1.0", "--num_view", "10", "--numdepth", "256",
+            "--max_h", "1088", "--max_w", "1920", "--filter_method", "normal", "--conf", "0.1,0.1,0.1",
+            "--thres_view", "4", "--thres_disp", "1.0"]
+# the buckets of tt_eval.sh's table whose stages the kernels phase checks:
+# Family's three, and stage 1 of the two others (widths 400 and 240 against
+# 32-wide tiles); K4 on conv01 over 2(V-1) images at each bucket
+TT_BUCKETS = {"1088x1920": (1, 2, 3), "896x1600": (1,), "544x960": (1,)}
+# the T&T phase's weights: the seeded init trained TT_FIT_STEPS bf16 steps
+# on a 5-view sphere_scene at TT_FIT_H x TT_FIT_W with the scene's 256
+# planes. Random weights give a near-uniform probability over a stage's
+# planes (stage 1: 4/48 = 0.083 in the confidence window), all under the
+# Family row's threshold of 0.1, so its fusion would keep no point
+TT_FIT_STEPS, TT_FIT_H, TT_FIT_W = 60, 256, 320
+
 KERNEL_INFO = {
     "warp_entropy": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1342"),
     "conv3d_bn_relu": ("cds_mvsnet_tpu_torch/csrc/conv3d_mma.cuh", "cds_mvsnet_tpu/ops/pallas/conv3d.py:159"),
@@ -207,8 +244,9 @@ TRAIN_KERNEL_NAMES = ("warp_sim", "warp_sim_backward")
 MIXED_KERNEL_NAMES = ("conv3d_front_fused_fp32", "conv3d_down_fp32")
 # the kernels' symbols as the profiler names them (csrc/*.cu): K1
 # warp_entropy_kernel (warp_kernel<C, false> in earlier commits), K5's forward
-# warp_kernel, its backward warp_sim_backward_kernel and
-# warp_sim_backward_finish_kernel (to_bf16_kernel in earlier commits); K2 in
+# warp_kernel, its backward warp_sim_backward_max_kernel (with the
+# fixed-point d_src), warp_sim_backward_kernel and warp_sim_backward_finish_kernel
+# (to_bf16_kernel in earlier commits); K2 in
 # bf16 conv3d_mma_kernel, in fp32 conv3d_tf32_kernel
 # (conv3d_bn_relu_kernel in earlier commits), K7 in bf16 conv3d_down_mma_kernel
 # (conv3d_bn_relu_kernel in earlier commits, as K7 in fp32 then); K6 in bf16
@@ -221,6 +259,7 @@ KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_b
                   "void conv3d_mma_kernel", "void conv3d_tf32_kernel",
                   "void exit_softargmin_kernel", "exit_softargmin_kernel",
                   "void dynconv_kernel", "void warp_sim_backward_kernel", "warp_sim_backward_finish_kernel",
+                  "warp_sim_backward_max_kernel",
                   "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
                   "void conv3d_down_mma_kernel", "conv3d_fused_tf32_kernel", "void conv3d_down_tf32_kernel",
@@ -237,6 +276,7 @@ PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
 PER_CLI_STEP = {name: TRAIN_CLI_BS * 3 * (TRAIN_CLI_NVIEWS - 1) * 2 for name in TRAIN_KERNEL_NAMES}
 PER_VAL_BATCH = {"warp_gather": DTU_VAL_BS * 3 * (TRAIN_CLI_NVIEWS - 1), "conv3d_bn_relu": DTU_VAL_BS * 3}
 # launches per view of the product: bf16 runs K1-K4, fp32 runs K9 and K2
+# (and the T&T phase's map, bf16 over 9 source views)
 OFF_PATH = {"conv3d_front_fused": 0, "conv3d_down": 0, "warp_sim_coords": 0, "warp_sim_coords_batched": 0,
             **{name: 0 for name in PROBE_NAMES}}
 PER_VIEW = {
@@ -245,6 +285,7 @@ PER_VIEW = {
     "fp32": {"warp_entropy": 0, "conv3d_bn_relu": 3, "exit_softargmin": 0, "dynconv_branches": 0,
              "warp_gather": 3 * (V - 1), "warp_sim": 0, "warp_sim_backward": 0, **OFF_PATH},
 }
+PER_TT_VIEW = {**PER_VIEW["bf16"], "warp_entropy": 3 * TT_SOURCES}
 # launches per push of the stream once its window is full (every kernel not
 # named: 0): bf16 runs K1-K4, fp32 K9 and K2
 PER_PUSH = {
@@ -421,6 +462,7 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
     dynconv_kernel(torch, uniform, record, 2 * (V - 1), H, W)
     feature_kernels(torch, uniform, tagged(record, "feature"))
     stream_kernels(torch, dev, uniform, tagged(record, "stream"), stream_scene)
+    tt_kernels(torch, dev, uniform, record)
     probe_kernels(torch, dev, record)
 
     train_kernels(torch, dev, uniform, record, train_batch)
@@ -697,11 +739,12 @@ def feature_kernels(torch, uniform, record):
         del x, ws, wsb, o_k, o_p, d
 
 
-def tagged(record, point: str):
-    """``record`` with ``"point": point`` added to each row's extras."""
+def tagged(record, point: str, **more):
+    """``record`` with ``"point": point`` (and ``more``) added to each row's
+    extras."""
     def rec(*args):
         extra = dict(args[11]) if len(args) > 11 else {}
-        return record(*args[:11], {**extra, "point": point})
+        return record(*args[:11], {**extra, "point": point, **more})
 
     return rec
 
@@ -744,6 +787,43 @@ def stream_kernels(torch, dev, uniform, record, scene):
             hyp = (centre[None] + steps[:, None, None] * (2.0, 1.0)[s - 2] * interval).contiguous()
         cascade_kernels(torch, dev, uniform, record, s, (C, D, h, w), hyp, rt)
     dynconv_kernel(torch, uniform, record, 2 * (STREAM_WINDOW - 1), STREAM_H, STREAM_W)
+
+
+def tt_stage_shapes(bh: int, bw: int):
+    """(C, D, h, w) of each stage at a T&T bucket of ``bh x bw``."""
+    return [(32, NDEPTHS[0], bh // 4, bw // 4), (16, NDEPTHS[1], bh // 2, bw // 2), (8, NDEPTHS[2], bh, bw)]
+
+
+def tt_kernels(torch, dev, uniform, record):
+    """K1-K3 at the T&T buckets' stage shapes (TT_BUCKETS: Family's three
+    stages at 272x480, 544x960 and 1088x1920, and stage 1 of the 896x1600
+    and 544x960 buckets, 224x400 and 136x240, whose widths are no multiple
+    of 32), on the warp between the first two views of a textured plane at
+    the bucket, and K4 on conv01 over 2(V-1) = 18 images of each bucket;
+    rows tagged ``"point": "tt"`` with their bucket."""
+    from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    interval = (937.0 - 425.0) / TT_D  # the T&T scene's depth line
+    for bucket, stages in TT_BUCKETS.items():
+        bh, bw = (int(x) for x in bucket.split("x"))
+        rec = tagged(record, "tt", bucket=bucket)
+        cams = textured_plane_batch(V=2, H=bh, W=bw, D=TT_D, seed=SEED)["proj_matrices"]
+        for s in stages:
+            C, D, h, w = tt_stage_shapes(bh, bw)[s - 1]
+            m = torch.as_tensor(cams[f"stage{s}"], device=dev)
+            rot, trans = relative_warp_transform(m[:, 0], m[:, 1])
+            rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+            if s == 1:
+                hyp = torch.linspace(425.0, 937.0, D, device=dev).contiguous()
+            else:  # per-pixel windows around a smooth depth map, ratios 2 and 1
+                centre = uniform((h, w), 560.0, 640.0, torch.float32)
+                steps = torch.arange(D, device=dev, dtype=torch.float32) - (D - 1) // 2
+                hyp = (centre[None] + steps[:, None, None] * (2.0, 1.0)[s - 2] * interval).contiguous()
+            cascade_kernels(torch, dev, uniform, rec, s, (C, D, h, w), hyp, rt)
+            torch.cuda.empty_cache()
+        dynconv_kernel(torch, uniform, rec, 2 * TT_SOURCES, bh, bw)
+        torch.cuda.empty_cache()
 
 
 def probe_kernels(torch, dev, record):
@@ -1672,9 +1752,10 @@ def phase_train(torch, batch, dev):
 
     # one step's loss and gradients from the same weights on three paths;
     # gradients() leaves the weights as they are. The kernel path runs
-    # twice: K5's backward adds with atomics, so two runs differ in the last
-    # bits of d_src. The first run records each K5 backward call's inputs and
-    # outputs for the check of every call below.
+    # twice, and the two must agree bit for bit (K5 sums d_src in fixed
+    # point, cuDNN runs its deterministic algorithms). The first run records
+    # each K5 backward call's inputs and outputs for the check of every call
+    # below.
     from cds_mvsnet_tpu_torch.ops.kernels import warp_vjp
 
     backward, calls = warp_vjp.FusedWarpTrain.backward, []
@@ -1697,6 +1778,8 @@ def phase_train(torch, batch, dev):
         grads[tag] = (float(metrics["loss"]), [p.grad.detach().clone() for p in step.params])
     for p in model.parameters():
         p.grad = None
+    repeat = {"loss": grads["kernel"][0] == grads["kernel_again"][0],
+              "grads": all(torch.equal(a, b) for a, b in zip(grads["kernel"][1], grads["kernel_again"][1]))}
 
     def group_of(name):
         return name.split(".")[0] if not name.startswith("stage_net") else "vis"
@@ -1719,18 +1802,19 @@ def phase_train(torch, batch, dev):
     # the gradient over all trainable leaves to 5e-2 relative L2. K5 and the
     # plain warp project, weight and gather with the same fp32 roundings, so
     # the two bf16 paths run the same forward; their backwards differ in the
-    # order of d_src's fp32 sums (K5 adds with atomics) and in autograd's
-    # bf16 partial sums of d_ref. Only the FeatureNet's gradient sees that,
-    # and it is ill-conditioned in its inputs: in fp32 a 1e-6 relative change
-    # of the input images moves some gradients by more than 1e-2
-    # (tests/test_torch_train_step.py), and two runs of the kernel path,
-    # which differ only in the order of the atomics, differ by about 1e-2
-    # here. A wrong backward moves it by 1 or more: the FeatureNet's gradient
-    # reaches the loss only through the warp.
+    # order and rounding of d_src's sums (K5 in fixed point, the plain
+    # version by fp32 adds) and in autograd's bf16 partial sums of d_ref.
+    # Only the FeatureNet's gradient sees that, and it is ill-conditioned in
+    # its inputs: in fp32 a 1e-6 relative change of the input images moves
+    # some gradients by more than 1e-2 (tests/test_torch_train_step.py); two
+    # runs of the kernel path whose d_src differed only in the order of fp32
+    # atomics differed by about 1e-2 (PERF.md). A wrong backward moves it by
+    # 1 or more: the FeatureNet's gradient reaches the loss only through the
+    # warp. (3) The kernel path's two steps bit for bit.
     gate = {"k5_calls": "every call within its elementwise tolerance", "loss_rel_max": 1e-4,
-            "grad_rel_l2_max": 5e-2}
+            "grad_rel_l2_max": 5e-2, "kernel_again": "loss and every gradient bit for bit"}
     ok = (cmp["k5_calls_ok"] and cmp["plain_bf16_loss_rel"] <= gate["loss_rel_max"]
-          and cmp["plain_bf16_grad_rel_l2"] <= gate["grad_rel_l2_max"])
+          and cmp["plain_bf16_grad_rel_l2"] <= gate["grad_rel_l2_max"] and repeat["loss"] and repeat["grads"])
 
     losses = []
     step = TrainStep(model, cfg)
@@ -1754,7 +1838,8 @@ def phase_train(torch, batch, dev):
         "phase": "train", "shape": [TRAIN_B, V, TRAIN_H, TRAIN_W, 3], "ndepths": list(NDEPTHS), "D": D_FULL,
         "compute_dtype": "bf16", "remat_features": True, "temperature": TRAIN_TEMPERATURE,
         "s_per_step": secs, "peak_mem_bytes": peak, "losses": losses, "launches": launches,
-        "launches_expected": want, "compare": cmp, "gate": gate, "ok": ok and finite and launches == want,
+        "launches_expected": want, "compare": cmp, "kernel_again_bit_for_bit": repeat, "gate": gate,
+        "ok": ok and finite and launches == want,
     })
     emit({"phase": "train_profile", **device_profile(torch, lambda: step(batch, TRAIN_TEMPERATURE))})
     if not finite:
@@ -1762,7 +1847,8 @@ def phase_train(torch, batch, dev):
     if launches != want:
         raise RuntimeError(f"K5 launch counts {launches} != expected {want}")
     if not ok:
-        raise RuntimeError("the kernel path's step disagrees with the plain bf16 path's")
+        raise RuntimeError(f"the kernel path's step disagrees with the plain bf16 path's or does not repeat "
+                           f"({repeat})")
     return launches, secs
 
 
@@ -2112,6 +2198,190 @@ def phase_product(torch, dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def write_tt_scene(root, seed: int = SEED) -> str:
+    """A synthetic scene in the Tanks and Temples layout under
+    ``root/Family``: TT_VIEWS views of a ``sphere_scene`` at 1920x1080 as
+    ``images/*.jpg``, their cam files with full-resolution intrinsics and
+    T&T's four-number depth line (``depth_min interval num depth_max``: 425,
+    2, 256, 937), and a pair file that gives each view the 10 nearest
+    others as sources."""
+    import os
+
+    from cds_mvsnet_tpu_torch.data.image import save_image
+    from cds_mvsnet_tpu_torch.utils.synthetic import sphere_scene
+
+    scan = os.path.join(root, "Family")
+    for sub in ("images", "cams"):
+        os.makedirs(os.path.join(scan, sub), exist_ok=True)
+    scene = sphere_scene(V=TT_VIEWS, H=TT_SRC_H, W=TT_W)
+    dmin, dmax = scene["depth_min"], scene["depth_max"]
+    for v in range(TT_VIEWS):
+        save_image(os.path.join(scan, "images", f"{v:0>8}.jpg"), scene["imgs"][v])
+        cam = scene["cams"][v]
+        rows = [" ".join(str(x) for x in row) for row in (*cam[0], *cam[1, :3, :3])]
+        with open(os.path.join(scan, "cams", f"{v:0>8}_cam.txt"), "w") as f:
+            f.write("extrinsic\n" + "\n".join(rows[:4]) + "\n\nintrinsic\n" + "\n".join(rows[4:])
+                    + f"\n\n{dmin} {(dmax - dmin) / TT_D} {TT_D} {dmax}\n")
+    lines = [str(TT_VIEWS)]
+    for v in range(TT_VIEWS):
+        srcs = sorted((u for u in range(TT_VIEWS) if u != v), key=lambda u: (abs(u - v), u))[:TT_SOURCES + 1]
+        lines += [str(v), f"{len(srcs)} " + " ".join(f"{u} {100.0 - abs(u - v):.1f}" for u in srcs)]
+    with open(os.path.join(scan, "pair.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return "Family"
+
+
+def fit_tt_weights(torch, model, dev) -> dict:
+    """Train ``model`` TT_FIT_STEPS steps in bf16 on the kernel path, SGD at
+    lr 0.01, on the five views of a ``sphere_scene`` at TT_FIT_H x TT_FIT_W,
+    each the reference of its two neighbours, with the T&T scene's 256
+    planes from 425 to 937; the losses and seconds it took."""
+    from cds_mvsnet_tpu_torch.config import TrainConfig
+    from cds_mvsnet_tpu_torch.models import to_tensors
+    from cds_mvsnet_tpu_torch.training import TrainStep
+    from cds_mvsnet_tpu_torch.utils.synthetic import sphere_scene, sphere_train_batch
+
+    scene = sphere_scene(V=5, H=TT_FIT_H, W=TT_FIT_W)
+    batches = [to_tensors(sphere_train_batch(scene, r, [(r + 1) % 5, (r + 4) % 5], D=TT_D, refine=False), dev)
+               for r in range(5)]
+    step = TrainStep(model, TrainConfig(compute_dtype="bf16", lr=0.01))
+    t0 = time.perf_counter()
+    losses = [float(step(batches[i % 5], 0.01)["loss"]) for i in range(TT_FIT_STEPS)]
+    return {"steps": TT_FIT_STEPS, "shape": [1, 3, TT_FIT_H, TT_FIT_W, 3], "D": TT_D, "first_losses": losses[:5],
+            "last_losses": losses[-5:], "s": time.perf_counter() - t0}
+
+
+def phase_tt(torch, dev):
+    """The Tanks and Temples point through the eval product: the Family row
+    of ``scripts/tt_eval.sh`` (TT_FLAGS) by ``test_cli.main`` in this process
+    on a synthetic scene in the tt layout (``write_tt_scene``), bf16 on the
+    card. Checks each map's launches (K1 27, K2 3, K3 3, K4 1, every other
+    kernel 0), the written files, each written depth against an in-process
+    forward on the same batch (the product phase's gate), the fused points
+    (> 0) and one view's ``fuse_view`` on the card against the CPU with the
+    row's thresholds; reports maps/s, the fusion's wall time (a second run
+    with ``--skip_inference``) and the peak device memory. The weights are
+    the seeded init after ``fit_tt_weights``."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.data.eval_set import EvalDataset
+    from cds_mvsnet_tpu_torch.fusion.pipeline import FusionConfig, _load_view, fuse_view
+    from cds_mvsnet_tpu_torch.io.cams import read_pair_file
+    from cds_mvsnet_tpu_torch.io.pfm import read_pfm
+    from cds_mvsnet_tpu_torch.models import build_model, to_tensors
+    from cds_mvsnet_tpu_torch.models.convert import save_model
+
+    work = tempfile.mkdtemp(prefix="cds_smoke_tt_")
+    try:
+        data = os.path.join(work, "data")
+        t0 = time.perf_counter()
+        scene = write_tt_scene(data)
+        scene_s = time.perf_counter() - t0
+        scenes = os.path.join(work, "scenes.txt")
+        with open(scenes, "w") as f:
+            f.write(scene + "\n")
+        cfg = ModelConfig(refine=False, ndepths=NDEPTHS)
+        ckpt = os.path.join(work, "ckpt.npz")
+        model = build_model(cfg, seed=SEED, device=dev)
+        fit = fit_tt_weights(torch, model, dev)
+        save_model(ckpt, model)
+        del model
+        out_dir = os.path.join(work, "out")
+        argv = ["--testpath", data, "--testlist", scenes, "--resume", ckpt, "--outdir", out_dir, *TT_FLAGS]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        result, launches, syncs, wall = product_run(torch, argv)
+        peak = torch.cuda.max_memory_allocated()
+        want = {name: n * TT_VIEWS for name, n in PER_TT_VIEW.items()}
+        problems = [] if launches == want else [f"launches {launches} != {want}"]
+
+        ds = EvalDataset(data, [scene], nviews=TT_SOURCES + 1, ndepths=TT_D, interval_scale=1.0, max_h=TT_H,
+                         max_w=TT_W, dataset="tt", refine=False)
+        interval = float(ds[0]["depth_values"][1] - ds[0]["depth_values"][0])  # stage 3 sweeps at ratio 1
+        dmin, dmax = float(ds[0]["depth_values"][0]), float(ds[0]["depth_values"][-1])
+        model = build_model(cfg, params=ckpt, device=dev)
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[result["inference"]["compute_dtype"]]
+        med, p99 = [], []
+        scan_dir = os.path.join(out_dir, scene)
+        for i in range(len(ds)):
+            sample, vid = ds[i], ds.metas[i][1]
+            b = to_tensors({k: v[None] if not isinstance(v, dict) else {s: a[None] for s, a in v.items()}
+                            for k, v in sample.items() if k != "filename"}, dev)
+            ref = model(b["imgs"], b["proj_matrices"], b["depth_values"], temperature=0.01,
+                        compute_dtype=dtype)["refined_depth"][0]
+            depth = read_pfm(os.path.join(scan_dir, "depth_est", f"{vid:0>8}.pfm"))[0]
+            conf = read_pfm(os.path.join(scan_dir, "confidence", f"{vid:0>8}.pfm"))[0]
+            if depth.shape != (TT_H, TT_W) or not np.isfinite(depth).all():
+                problems.append(f"depth {vid}: shape {depth.shape} or non-finite")
+                continue
+            if depth.min() < dmin - 1e-3 or depth.max() > dmax + 1e-3:
+                problems.append(f"depth {vid}: [{depth.min()}, {depth.max()}] outside [{dmin}, {dmax}]")
+            if conf.shape != (TT_H, TT_W, 3) or not np.isfinite(conf).all():
+                problems.append(f"confidence {vid}: shape {conf.shape}")
+            m, q = quantiles(torch, (torch.as_tensor(depth, device=dev) - ref).abs())
+            med.append(m)
+            p99.append(q)
+        del model
+        torch.cuda.empty_cache()
+        gate = len(med) == TT_VIEWS and max(med) <= 0.01 * interval and max(p99) <= 0.25 * interval
+        if not gate:
+            problems.append(f"written depth vs forward: median {med}, p99 {p99} (interval {interval})")
+        points = result["points"][scene]
+        if points <= 0:
+            problems.append("normal fusion kept no point")
+
+        # the fusion alone, as the script's row runs it on the written maps
+        fused_again, fusion_launches, _, fusion_wall = product_run(torch, [*argv, "--skip_inference"])
+        if fused_again["points"][scene] != points:
+            problems.append(f"fusion again: {fused_again['points'][scene]} points, not {points}")
+
+        # view 0's fuse_view on the card against the CPU, with the row's thresholds
+        fcfg = FusionConfig(n_src_views=10, conf_thresholds=(0.1, 0.1, 0.1), img_dist_thresh=1.0,
+                            depth_thresh=0.01, vthresh=4)
+        ref_id, src_ids = read_pair_file(os.path.join(data, scene, "pair.txt"))[0]
+        views = [_load_view(scan_dir, v) for v in (ref_id, *src_ids[:10])]
+        fused = {}
+        for where in (dev, torch.device("cpu")):
+            def t(a):
+                return torch.as_tensor(np.ascontiguousarray(a), device=where)
+
+            pts, mask, depth = fuse_view(t(views[0][0]), t(views[0][1]), t(np.stack([v[0] for v in views[1:]])),
+                                         t(np.stack([v[1] for v in views[1:]])), t(views[0][2]),
+                                         t(np.stack([v[2] for v in views[1:]])), fcfg)
+            fused[where.type] = [x.cpu() for x in (pts, mask, depth)]
+        (pg, mg, dg), (pc, mc, dc) = fused[dev.type], fused["cpu"]
+        flips = float((mg != mc).float().mean())
+        dep_off = float(((dg - dc).abs() > 1e-5 * dc.abs()).float().mean())
+        both = mg & mc
+        pts_off = float((both & ((pg - pc).abs().amax(-1) > 1e-5 * pc.abs().amax(-1))).float().mean())
+        if not (flips <= 1e-4 and dep_off <= 1e-4 and pts_off <= 1e-4):
+            problems.append(f"fuse_view card vs CPU: mask flips {flips}, points off {pts_off}, depth off {dep_off}")
+        stats = result["inference"]
+        if stats["compute_dtype"] != "bf16":
+            problems.append(f"the CLI ran {stats['compute_dtype']}, not bf16")
+        emit({"phase": "tt", "scene": [TT_VIEWS, TT_SRC_H, TT_W], "shape": [TT_H, TT_W], "flags": TT_FLAGS,
+              "ndepths": list(NDEPTHS), "depth_interval": interval, "depth_range": [dmin, dmax],
+              "scene_s": scene_s, "fit": fit, "maps_per_sec": stats["maps_per_sec"],
+              "maps_per_sec_sustained": 1.0 / stats["mean_s"], "stats": stats, "wall_s": wall,
+              "fusion_wall_s": fusion_wall, "fusion_launches": {k: v for k, v in fusion_launches.items() if v},
+              "peak_mem_bytes": peak, "launches": launches, "launches_expected": want, "host_syncs": syncs,
+              "fused_points": points, "written_vs_forward_depth_median": med, "written_vs_forward_depth_p99": p99,
+              "fuse_view_card_vs_cpu": {"mask_flip_frac": flips, "points_off_frac": pts_off,
+                                        "depth_off_frac": dep_off, "kept_frac": float(mc.float().mean())},
+              "gate": {"written_vs_forward_depth_median_max": 0.01 * interval,
+                       "written_vs_forward_depth_p99_max": 0.25 * interval, "fused_points_min": 1},
+              "problems": problems, "ok": not problems})
+        if problems:
+            raise RuntimeError(f"tt phase failed: {problems}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_probes(torch) -> dict:
     """The probes' own entry points, the path of P1 and P2: each tool's
     ``main`` on the card, every launch count set to 0 just before and read
@@ -2335,6 +2605,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_cli(torch, train_secs)
     launches.update(phase_product(torch, dev))
+    torch.cuda.empty_cache()
+    phase_tt(torch, dev)
+    torch.cuda.empty_cache()
     phase_stream(torch, stream_scene, dev)
     del stream_scene
     torch.cuda.empty_cache()
@@ -2372,8 +2645,9 @@ def main() -> int:
         })
         for point in sorted({r.get("point") for r in results[name]} - points):
             kernels[-1][f"{point}_per_stage"] = [
-                {k: r[k] for k in ("layer", "stage", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                                   "device_ms", "library_device_ms", "k2_plus_k7_ms", "fma_floor_ms") if k in r}
+                {k: r[k] for k in ("layer", "bucket", "stage", "ms", "plain_ms", "library_ms", "bound_ms",
+                                   "max_abs_err", "device_ms", "library_device_ms", "k2_plus_k7_ms", "fma_floor_ms")
+                 if k in r}
                 for r in results[name] if r.get("point") == point]
         if name in PROBE_NAMES:  # the probes run only in their tools
             kernels[-1]["launches_per_map"] = 0

@@ -490,24 +490,58 @@ def test_warp_sim_in_prod_equals_plain(gen, C, per_pixel, D):
     assert bool(((sim - sim_p).abs() <= 2 ** -7 * ip_p.float().abs().sum(0) + 1e-5).all())
 
 
-@pytest.mark.parametrize("C", [8, 16, 32])
-@pytest.mark.parametrize("per_pixel", [False, True])
-def test_warp_sim_backward_d_ref_is_deterministic(gen, C, per_pixel):
-    """d_ref sums each plane chunk in registers and the chunks in order, with
-    no atomics: two runs give the same bits."""
-    src, ref, depth, rt = warp_rig(gen, C, per_pixel, D=40)
-    D, (_, h, w) = depth.shape[0], ref.shape
-    g_ip, g_sim = uniform(gen, (C, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
-    first = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[1]
-    second = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[1]
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
-
-
 # (h, w, D): hw no multiple of a tile's pixels and not of 8 (2-byte rows),
 # below a tile, one plane; at 61x83, 64x80 and 29x131 several planes a chunk
 # with a ragged last chunk (ops/kernels/warp_vjp.py::launch_plan)
 K5_RAGGED = [(19, 37, 13), (3, 7, 1), (5, 288, 9), (61, 83, 50), (64, 80, 50), (29, 131, 100)]
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("h,w,D", K5_RAGGED)
+def test_warp_sim_backward_is_deterministic(gen, C, per_pixel, h, w, D):
+    """d_ref sums each plane chunk in registers and the chunks in order, and
+    d_src adds in fixed point with 64-bit integer atomics, whose order does
+    not change the sum: two runs give the same bits of both, within the
+    plain version's tolerance."""
+    H, W = h + 5, w + 9
+    src, ref = uniform(gen, (H, W, C)), uniform(gen, (C, h, w))
+    rt = torch.tensor(RT, device="cuda")
+    depth = torch.linspace(2.0, 40.0, D, device="cuda")
+    if per_pixel:
+        depth = (depth[:, None, None] * uniform(gen, (1, h, w), 0.8, 1.2, torch.float32)).contiguous()
+    g_ip, g_sim = uniform(gen, (C, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
+    first = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)
+    second = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert backward_within_tolerance(src, ref, depth, rt, g_ip, g_sim, *first)
+
+
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("k", [-60, 60])
+def test_warp_sim_backward_fixed_point_follows_the_scale(gen, C, k):
+    """The fixed point's scale 2^S follows the cotangents' magnitude: times
+    2^k, d_src is 2^k times the same bits (S moves by -k), far below and far
+    above 1."""
+    src, ref, depth, rt = warp_rig(gen, C, True, D=9)
+    D, (_, h, w) = depth.shape[0], ref.shape
+    g_ip, g_sim = uniform(gen, (C, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
+    d_src = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[0]
+    scaled = K.warp_sim_backward(src, ref, depth, rt, (g_ip.float() * 2.0 ** k).to(torch.bfloat16),
+                                 g_sim * 2.0 ** k)[0]
+    assert torch.equal(scaled, (d_src.float() * 2.0 ** k).to(torch.bfloat16))
+    assert int((d_src != 0).sum()) > 0
+
+
+def test_warp_sim_backward_non_finite_cotangent_gives_nan(gen):
+    """An infinite cotangent leaves no finite fixed point: d_src is NaN."""
+    src, ref, depth, rt = warp_rig(gen, 8, False, D=5)
+    D, (_, h, w) = depth.shape[0], ref.shape
+    g_ip, g_sim = uniform(gen, (8, D, h, w)), uniform(gen, (D, h, w), dtype=torch.float32)
+    g_sim[2, 3, 4] = float("inf")
+    d_src = K.warp_sim_backward(src, ref, depth, rt, g_ip, g_sim)[0]
+    assert bool(torch.isnan(d_src).all())
 
 
 @pytest.mark.parametrize("C", [8, 16, 32])
@@ -1206,3 +1240,121 @@ def test_train_cli_runs_the_kernels(gen, tmp_path):
     assert [k.launches for k in K.TRAIN_KERNELS] == [2 * 3 * 2 * 2 * steps] * 2
     assert all(math.isfinite(v) for v in trainer.history[0].values())
     assert all(p.is_cuda for p in trainer.model.parameters())
+
+
+def test_default_fp32_and_bf16_requests_repeat(gen):
+    """With cuDNN left at PyTorch's defaults by the caller, build_model holds
+    it to deterministic algorithms: two default requests in fp32, and two in
+    bf16, are bit for bit."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import build_model, to_tensors
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    model = build_model(ModelConfig(refine=False, ndepths=(48, 32, 8)), seed=0, device="cuda")
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+    b = to_tensors(textured_plane_batch(V=5, H=192, W=256, D=192, seed=0), "cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        first, again = (model(b["imgs"], b["proj_matrices"], b["depth_values"], compute_dtype=dtype)["stage3"]
+                        for _ in range(2))
+        for key in ("depth", "photometric_confidence"):
+            assert torch.equal(first[key], again[key]), (dtype, key)
+
+
+@pytest.mark.parametrize("dtype,kernels", [("bf16", True), ("bf16", False), ("fp32", True)])
+def test_train_steps_repeat(gen, dtype, kernels):
+    """Two train steps from the same weights and batch, each with a fresh
+    optimizer: the loss, every gradient and the update (the weights and the
+    BN statistics after the step) bit for bit; the kernel path (K5's
+    fixed-point d_src), the plain bf16 path and the fp32 step (the plain
+    warp's and the resizes' gathers differentiated in a fixed order)."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from cds_mvsnet_tpu_torch.models import build_model, to_tensors
+    from cds_mvsnet_tpu_torch.training import TrainStep
+    from cds_mvsnet_tpu_torch.utils.synthetic import synthetic_batch
+
+    torch.backends.cudnn.deterministic = False
+    model = build_model(ModelConfig(refine=True, ndepths=(48, 32, 8)), seed=0, device="cuda")
+    batch = to_tensors(synthetic_batch(B=2, V=3, H=256, W=320, D=192, refine=True, with_gt=True, seed=0), "cuda")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        step = TrainStep(model, TrainConfig(compute_dtype=dtype, remat_features=True), kernels=kernels)
+        loss = step(batch, 0.01)["loss"]
+        runs.append((loss.clone(), [p.grad.clone() for p in step.params],
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    (l0, g0, s0), (l1, g1, s1) = runs
+    assert bool(torch.isfinite(l0)) and torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+    assert any(not torch.equal(s0[k], start[k]) for k in s0)  # the step moved the weights
+
+
+def test_index_select_gradient_repeats(gen):
+    """ops.index.index_select's backward (index_put_ with accumulate, which
+    PyTorch sorts) sums heavily repeated rows in the same order every run,
+    within fp32 rounding of an fp64 sum; autograd's own index_add_ is the
+    form it replaces."""
+    from cds_mvsnet_tpu_torch.ops.index import index_select
+
+    src = uniform(gen, (64, 32), dtype=torch.float32).requires_grad_()
+    idx = (torch.rand(200_000, generator=gen, device="cuda") * 64).long()
+    g = uniform(gen, (200_000, 32), dtype=torch.float32)
+    grads = [torch.autograd.grad(index_select(src, 0, idx), src, g)[0] for _ in range(3)]
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+    assert torch.equal(index_select(src, 0, idx), torch.index_select(src, 0, idx))
+    want = torch.zeros(64, 32, dtype=torch.float64, device="cuda").index_add_(0, idx, g.double())
+    terms = torch.zeros(64, 32, dtype=torch.float64, device="cuda").index_add_(0, idx, g.double().abs())
+    assert bool(((grads[0].double() - want).abs() <= 2 ** -20 * terms).all())
+
+
+# T&T stage shapes (C, D, h, w): the Family bucket's three stages (1088x1920)
+# and stage 1 of the 896x1600 and 544x960 buckets, whose widths 400 and 240
+# are no multiple of the kernels' 32-wide tiles
+TT_STAGES = [(32, 48, 272, 480), (16, 32, 544, 960), (8, 8, 1088, 1920), (32, 48, 224, 400), (32, 48, 136, 240)]
+
+
+@pytest.mark.parametrize("C,D,h,w", TT_STAGES)
+def test_tt_stage_kernels_match_plain(gen, C, D, h, w):
+    """K1, K2 and K3 at the T&T stage shapes, against their plain versions
+    under chip_smoke.py's contracts: K1's in_prod within one bf16 ulp of the
+    warped value and its entropy within 1e-2, K2 within one bf16 ulp, K3's
+    depth within 1e-2 and its confidence within 1e-4 off truncation
+    boundaries."""
+    from cds_mvsnet_tpu_torch.models import to_tensors
+    from cds_mvsnet_tpu_torch.ops.geometry import relative_warp_transform
+    from cds_mvsnet_tpu_torch.utils.synthetic import textured_plane_batch
+
+    stage = {32: 1, 16: 2, 8: 3}[C]
+    H, W = h * 2 ** (3 - stage), w * 2 ** (3 - stage)
+    cams = to_tensors(textured_plane_batch(V=2, H=H, W=W, D=256, seed=0), "cuda")["proj_matrices"][f"stage{stage}"]
+    rot, trans = relative_warp_transform(cams[:, 0], cams[:, 1])
+    rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
+    if stage == 1:
+        hyp = torch.linspace(425.0, 937.0, D, device="cuda")
+    else:
+        centre = uniform(gen, (h, w), 560.0, 640.0, torch.float32)
+        steps = torch.arange(D, device="cuda", dtype=torch.float32) - (D - 1) // 2
+        hyp = (centre[None] + steps[:, None, None] * (2.0, 1.0)[stage - 2] * 2.0).contiguous()
+    src, ref = uniform(gen, (h, w, C)), uniform(gen, (C, h, w))
+    ip, ent = K.warp_entropy(src, ref, hyp, rt)
+    ip_p, ent_p = K.warp_entropy_plain(src, ref, hyp, rt)
+    assert within_one_ulp(ip, ip_p, 2 ** -8)
+    assert float((ent - ent_p).abs().max()) <= 1e-2
+    del ip, ip_p, ent, ent_p
+    vol, wk, bk = conv_rig(gen, C, 8, torch.bfloat16, (D, h, w))
+    assert within_one_ulp(K.conv3d_bn_relu(vol, wk, bk), K.conv3d_bn_relu_plain(vol, wk, bk))
+    del vol
+    y = uniform(gen, (8, D, h, w), -2.0, 2.0)
+    wp = uniform(gen, (1, 8, 3, 3, 3), -0.3, 0.3, torch.float32)
+    depth, conf = K.exit_softargmin(y, wp, hyp)
+    assert exit_within_tolerance(y, wp, hyp, depth, conf)
+
+
+@pytest.mark.parametrize("H,W", [(1088, 1920), (896, 1600), (544, 960)])
+def test_tt_conv01_matches_plain(gen, H, W):
+    """K4 on conv01 over the 2(V-1) = 18 images of a T&T request at each
+    bucket (18 x 8 x 1088 x 1920 in), bit for bit."""
+    x, ws = dynconv_rig(gen, 18, 8, 11, (3, 5, 7), (H, W))
+    assert torch.equal(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
