@@ -6,67 +6,91 @@
 #include "common.cuh"
 
 constexpr int kLanes = 128;
-constexpr int kMaxSmem = 232448;  // what one block may opt in to on the H100
+constexpr int kGroup = 8;     // lanes a block owns: one 32-byte sector of each slice
+constexpr int kChunk = 128;   // slices a stage of the ring holds
+constexpr int kStages = 8;    // stages of the ring (32 KB): kStages - 1 in flight while one is summed
+constexpr int kLoaders = 128; // threads that copy: warps 1 to 4
+constexpr int kThreads = 32 + kLoaders;
+constexpr int kBatch = 16;    // shared-memory reads a summing thread has in flight
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// The start of slice i: floored to a multiple of 128, clamped into the band.
+__device__ __forceinline__ int slice_start(const int* __restrict__ offs, int i, int width) {
+  const int o = __ldg(offs + i);
+  return o < 0 ? 0 : min((o / kLanes) * kLanes, width - kLanes);
 }
 
-// One block of R * 128 threads, thread (r, l) = (tid / 128, tid % 128). One
-// thread starts a single bulk copy (TMA's 1-D form) of the whole band into
-// shared memory that completes on an mbarrier; meanwhile the block reads and
-// clamps the slice starts. Then each thread sums its lane over the slices,
-// in slice order.
-__global__ void lane_slice_kernel(const float* __restrict__ x,     // (R, 128 * nseg)
-                                  const int* __restrict__ offs,    // (nseg,)
-                                  float* __restrict__ out,         // (R, 128)
-                                  int nseg) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) unsigned long long bar;
+// Block (g, r) owns lanes [8g, 8g + 8) of row r. Warps 1 to 4 bring those
+// lanes of the slices, 128 slices a stage, into a ring of shared memory
+// with cp.async, kStages - 1 stages ahead: two 16-byte copies a slice where
+// the band is 16-byte aligned (kVec), else eight 4-byte ones; each loader
+// reads its slices' starts first, then makes its copies. Lanes 0 to 7 of
+// warp 0 sum their lane over each stage as it lands, in slice order, kBatch
+// reads at a time ahead of their adds.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) lane_slice_kernel(const float* __restrict__ x,   // (R, 128 * nseg)
+                                                             const int* __restrict__ offs,  // (nseg,)
+                                                             float* __restrict__ out,       // (R, 128)
+                                                             int nseg) {
+  constexpr int kWidth = kVec ? 4 : 1;                        // floats a copy moves
+  constexpr int kCopies = kChunk * kGroup / kWidth / kLoaders;  // copies a loader makes a stage
+  __shared__ __align__(16) float ring[kStages][kChunk * kGroup];
   const int width = kLanes * nseg;
-  float* band = reinterpret_cast<float*>(smem);                     // (R, width)
-  int* starts = reinterpret_cast<int*>(band + (size_t)blockDim.x * nseg);  // (nseg,)
-  const uint32_t bytes = (uint32_t)blockDim.x * (uint32_t)nseg * 4u;
-  const uint32_t b = smem_addr(&bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const float* row = x + (long long)blockIdx.y * width + blockIdx.x * kGroup;
+  const int chunks = (nseg + kChunk - 1) / kChunk;
+  const int t = threadIdx.x - 32;  // loader index; < 0 in warp 0
+  auto load = [&](int c) {  // stage c % kStages <- slices [c * kChunk, c * kChunk + kChunk)
+    if (t < 0 || c >= chunks) return;
+    int start[kCopies];
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      const int i = c * kChunk + (t + j * kLoaders) * kWidth / kGroup;
+      start[j] = i < nseg ? slice_start(offs, i, width) : -1;
+    }
+    float* stage = ring[c % kStages];
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      const int e = (t + j * kLoaders) * kWidth;  // float of the stage: slice e / 8, lane e % 8
+      if (start[j] >= 0) cp_async<4 * kWidth>(stage + e, row + start[j] + e % kGroup, true);
+    }
+  };
+  for (int c = 0; c < kStages - 1; ++c) {
+    load(c);
+    cp_async_commit();
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-            smem_addr(band)),
-        "l"(x), "r"(bytes), "r"(b)
-        : "memory");
-  }
-  // slice starts: floored to a multiple of 128, clamped into the band
-  for (int i = threadIdx.x; i < nseg; i += blockDim.x) {
-    const int o = __ldg(offs + i);
-    starts[i] = o < 0 ? 0 : min((o / kLanes) * kLanes, width - kLanes);
-  }
-  __syncthreads();
-  uint32_t done = 0;
-  do {  // phase 0 completes when all bytes of the band have landed
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b)
-        : "memory");
-  } while (!done);
-  const float* row = band + (size_t)(threadIdx.x / kLanes) * width + threadIdx.x % kLanes;
   float acc = 0.f;
-  for (int i = 0; i < nseg; ++i) acc += row[starts[i]];
-  out[threadIdx.x] = acc;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of stage c have landed
+    __syncthreads();               // everyone's have, and stage c - 1 has been summed
+    load(c + kStages - 1);
+    cp_async_commit();
+    if (threadIdx.x < kGroup) {
+      const float* stage = ring[c % kStages] + threadIdx.x;
+      const int n = min(kChunk, nseg - c * kChunk);
+      int k = 0;
+      for (; k + kBatch <= n; k += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) v[u] = stage[(k + u) * kGroup];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) acc += v[u];
+      }
+      for (; k < n; ++k) acc += stage[k * kGroup];
+    }
+  }
+  if (threadIdx.x < kGroup) out[blockIdx.y * kLanes + blockIdx.x * kGroup + threadIdx.x] = acc;
 }
 
 CDS_EXPORT int lane_slice_launch(const void* x, const void* offs, void* out, int R, int nseg, void* stream) {
-  const size_t smem = (size_t)R * kLanes * nseg * 4 + (size_t)nseg * 4;
-  if (R < 1 || R * kLanes > 1024 || nseg < 1 || smem + 16 > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(lane_slice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  lane_slice_kernel<<<1, R * kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(offs), static_cast<float*>(out), nseg);
+  if (R < 1 || R > 65535 || nseg < 1 || nseg > (1 << 30) / kLanes) return (int)cudaErrorInvalidValue;
+  const dim3 grid(kLanes / kGroup, R);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, st>>>(static_cast<const float*>(x), static_cast<const int*>(offs),
+                                      static_cast<float*>(out), nseg);
+  };
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    go(lane_slice_kernel<true>);
+  else
+    go(lane_slice_kernel<false>);
   return (int)cudaGetLastError();
 }

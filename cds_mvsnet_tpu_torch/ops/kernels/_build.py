@@ -1,17 +1,23 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and their binding.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``. All sources are compiled together, one ``nvcc`` process each, so
-the first build costs one ``nvcc`` run of wall time. Libraries go to
-``cds_mvsnet_tpu_torch/_build/<hash of sources and flags>/`` inside the
-checkout; a changed source gets a new directory. Nothing here runs at import.
+``ctypes``. ``csrc/launch.cpp``, the light launch path's Python module
+(``_launch.binding``), is compiled by the host's C++ compiler against
+torch's headers (``torch.utils.cpp_extension.include_paths()`` and
+``library_paths()``; no CUDA header). All sources are compiled together, one
+process each, so the first build costs the slowest one's wall time.
+Libraries go to ``cds_mvsnet_tpu_torch/_build/<hash of sources, flags and
+torch version>/`` inside the checkout; a changed source gets a new
+directory. Nothing here runs at import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -19,7 +25,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "build_all", "check"]
+__all__ = ["library", "extension", "build_all", "check"]
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
@@ -28,8 +34,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+CXX_FLAGS = ("-O2", "-std=c++20", "-shared", "-fPIC")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_modules: dict[str, object] = {}
 _info: dict = {}
 
 
@@ -41,12 +50,31 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cpp"))
+
+
+def _cxx_command(src: Path, out: Path) -> list[str]:
+    """The C++ compiler's command for a module against torch's headers."""
+    import sysconfig
+
+    import torch
+    from torch.utils import cpp_extension
+
+    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found for the launch path's binding")
+    includes = [sysconfig.get_paths()["include"], *cpp_extension.include_paths()]
+    libs = cpp_extension.library_paths()
+    return [cxx, *CXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            *(f"-I{d}" for d in includes), "-o", str(out), str(src), *(f"-L{d}" for d in libs),
+            *(f"-Wl,-rpath,{d}" for d in libs), "-lc10", "-ltorch_cpu", "-ltorch_python"]
 
 
 def _build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    import torch
+
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *CXX_FLAGS, torch.__version__)).encode())
+    for src in sorted(CSRC.glob("*.c*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return PKG_DIR / "_build" / h.hexdigest()[:16]
@@ -70,13 +98,13 @@ def build_all() -> dict:
             if lib.exists():
                 continue
             tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)] if src.suffix == ".cu" else _cxx_command(src, tmp)
+            procs[src.name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
         log = []
         failed = []
         for name, (proc, tmp, lib) in procs.items():
             out, _ = proc.communicate()
-            log.append(f"== {name}.cu\n{out}")
+            log.append(f"== {name}\n{out}")
             if proc.returncode != 0:
                 failed.append(name)
             else:
@@ -100,6 +128,22 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(Path(info["dir"]) / f"lib{name}.so"))
                 _libs[name] = lib
     return lib
+
+
+def extension(name: str, module: str):
+    """The Python module ``module`` built from ``csrc/<name>.cpp`` (built on
+    first use)."""
+    mod = _modules.get(name)
+    if mod is None:
+        info = build_all()
+        with _lock:
+            mod = _modules.get(name)
+            if mod is None:
+                loader = importlib.machinery.ExtensionFileLoader(module, str(Path(info["dir"]) / f"lib{name}.so"))
+                mod = importlib.util.module_from_spec(importlib.util.spec_from_loader(module, loader))
+                loader.exec_module(mod)
+                _modules[name] = mod
+    return mod
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

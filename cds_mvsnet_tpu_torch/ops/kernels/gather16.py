@@ -18,28 +18,39 @@ widening of bf16 and an add of 0 or 1 round nothing beyond the one
 rounding of ``src`` to ``V``, so the card matches the plain versions bit for
 bit.
 
-Bound on the H100: a launch. The probe's (64, 128) arrays are 32 KB each;
-the bytes take about 30 ns at 3.35 TB/s. Design: ``row_gather`` runs one
-block per row, stages the row converted to ``V`` in shared memory (the
-counterpart of the TPU's lane crossbar, which gathers within one vreg row),
-then each thread gathers outputs of that row; the types are template
-parameters (source, value, index). ``int16_arith`` runs one thread per
-element with the index arithmetic in ``short``. The row must fit in 48 KB
-of shared memory: ``L ≤ 12288`` in fp32, ``24576`` in bf16.
+Bound on the H100: bytes (source, indices and output once each: 96 KB at
+the probe's (64, 128), 29 ns at 3.35 TB/s), so at the probe's size the
+launch and the wrapper's host path set the time. The wrappers take the light
+launch path of ``_launch.py`` (``csrc/launch.cpp`` allocates and
+launches). Design: ``row_gather`` stages a row that fits in one block's
+shared memory (227 KB: ``L ≤ 58112`` in fp32 values, ``116224`` in bf16):
+the row, converted to ``V``, goes to shared memory (the counterpart of the
+TPU's lane crossbar, which gathers within one vreg row), then the block's
+threads gather outputs of that row from it. A row is split over as many
+blocks as give the card about 264 (two an SM), each block gathering at
+least 4096 of its outputs and staging the whole row; blocks have 128 to
+1024 threads and each thread keeps 4 loads in flight. A row over 48 KB opts
+the kernel in to more shared memory once per process and card, not per
+launch. A longer row is gathered straight from device memory, 4 outputs a
+thread, through the read-only cache, converted to ``V`` at the load. The
+types are template parameters (source, value, index). ``int16_arith`` runs
+one thread per element with the index arithmetic in ``short``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
-from ._launch import I, L, P, entry, on_card, ptr, require, stream
+from ._launch import binding, card_index, current_stream
 
 __all__ = ["row_gather", "row_gather_plain", "int16_arith", "int16_arith_plain"]
 
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int16)
-ROW_BYTES = 48 * 1024
+# (source, value, index type) -> the C entry point's form: bit 0 a bf16
+# source, bit 1 bf16 values, bit 2 int16 indices
+_FORMS = {(s, v, i): (s == torch.bfloat16) | (v == torch.bfloat16) << 1 | (i == torch.int16) << 2
+         for s in VALUE_DTYPES for v in VALUE_DTYPES for i in INDEX_DTYPES}
 
 
 def row_gather_plain(src: torch.Tensor, idx: torch.Tensor, value_dtype=torch.float32,
@@ -60,23 +71,22 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor, value_dtype=torch.float32,
     """``src (R, L)`` fp32 or bf16, ``idx (R, L)`` int32 -> ``(R, L)`` fp32,
     gathered along each row in ``value_dtype`` at indices in
     ``index_dtype``."""
-    require(src.ndim == 2 and idx.shape == src.shape, f"row_gather: src {tuple(src.shape)}, idx {tuple(idx.shape)}")
-    require(src.dtype in VALUE_DTYPES and idx.dtype == torch.int32,
-            f"row_gather: src {src.dtype} must be fp32 or bf16, idx {idx.dtype} int32")
-    require(value_dtype in VALUE_DTYPES and index_dtype in INDEX_DTYPES,
-            f"row_gather: value type {value_dtype} (fp32, bf16), index type {index_dtype} (int32, int16)")
+    if not (src.ndim == 2 and idx.shape == src.shape):
+        raise ValueError(f"row_gather: src {tuple(src.shape)}, idx {tuple(idx.shape)}")
+    form = _FORMS.get((src.dtype, value_dtype, index_dtype))
+    if form is None or idx.dtype != torch.int32:
+        if not (src.dtype in VALUE_DTYPES and idx.dtype == torch.int32):
+            raise ValueError(f"row_gather: src {src.dtype} must be fp32 or bf16, idx {idx.dtype} int32")
+        raise ValueError(f"row_gather: value type {value_dtype} (fp32, bf16), index type {index_dtype} (int32, int16)")
     R, n = src.shape
-    require(R * n > 0, "row_gather: empty input")
-    row_bytes = n * (2 if value_dtype == torch.bfloat16 else 4)
-    require(row_bytes <= ROW_BYTES, f"row_gather: a row of {row_bytes} bytes exceeds {ROW_BYTES} of shared memory")
-    require(src.is_contiguous() and idx.is_contiguous(), "row_gather: inputs must be contiguous")
-    if not on_card("row_gather", src, idx):
+    if not R * n > 0:
+        raise ValueError("row_gather: empty input")
+    if not (src.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("row_gather: inputs must be contiguous")
+    dev = card_index("row_gather", src, idx)
+    if dev < 0:
         return row_gather_plain(src, idx, value_dtype, index_dtype)
-    out = torch.empty((R, n), dtype=torch.float32, device=src.device)
-    lib, fn = entry("gather16", "row_gather_launch", [P, P, P, I, I, I, I, I, P])
-    err = fn(ptr(src), ptr(idx), ptr(out), int(src.dtype == torch.bfloat16), int(value_dtype == torch.bfloat16),
-             int(index_dtype == torch.int16), R, n, stream(src.device))
-    _build.check(lib, err, "row_gather")
+    out = binding().row_gather(src, idx, form, current_stream(dev))
     row_gather.launches += 1
     return out
 
@@ -90,14 +100,14 @@ def int16_arith_plain(src: torch.Tensor) -> torch.Tensor:
 
 def int16_arith(src: torch.Tensor) -> torch.Tensor:
     """``src (R, L)`` fp32 -> ``src + ((int16(l) + 3) % 7 == 2)``, fp32."""
-    require(src.ndim == 2 and src.dtype == torch.float32, f"int16_arith: src {tuple(src.shape)} {src.dtype}")
-    require(src.numel() > 0 and src.is_contiguous(), "int16_arith: src must be non-empty and contiguous")
-    if not on_card("int16_arith", src):
+    if not (src.ndim == 2 and src.dtype == torch.float32):
+        raise ValueError(f"int16_arith: src {tuple(src.shape)} {src.dtype}")
+    if not (src.numel() > 0 and src.is_contiguous()):
+        raise ValueError("int16_arith: src must be non-empty and contiguous")
+    dev = card_index("int16_arith", src)
+    if dev < 0:
         return int16_arith_plain(src)
-    out = torch.empty_like(src)
-    lib, fn = entry("gather16", "int16_arith_launch", [P, P, I, L, P])
-    err = fn(ptr(src), ptr(out), src.shape[1], src.numel(), stream(src.device))
-    _build.check(lib, err, "int16_arith")
+    out = binding().int16_arith(src, current_stream(dev))
     int16_arith.launches += 1
     return out
 

@@ -44,7 +44,9 @@ Phases, one JSON line each:
    16/32/544x960, 8/8/1088x1920, and stage 1 of the 896x1600 and 544x960
    buckets, 224x400 and 136x240) and K4 on conv01 over 18 images of each
    bucket (rows tagged ``"point": "tt"`` with their bucket); P1 and P2, the probes' kernels,
-   at their probes' inputs (and P1 on a 192 KB band), bit for bit;
+   at their probes' inputs, P1 on a 192 KB and a 2 MB band, P2 on rows past
+   48 KB, bit for bit, each call's ms split into host and device time, P2's
+   beside ``torch.gather``'s;
    probes: the probes' entry points (``cds_mvsnet_tpu_torch.tools.
    probe_lane_slice`` and ``probe_gather16``), the path of P1 and P2, with
    their launches;
@@ -263,7 +265,8 @@ KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_b
                   "to_bf16_kernel", "void gather_kernel",
                   "void conv3d_fused_kernel", "conv3d_fused_mma_kernel", "void warp_coords_kernel",
                   "void conv3d_down_mma_kernel", "conv3d_fused_tf32_kernel", "void conv3d_down_tf32_kernel",
-                  "lane_slice_kernel", "void row_gather_kernel", "int16_arith_kernel")
+                  "lane_slice_kernel", "void row_gather_kernel", "void row_gather_direct_kernel",
+                  "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
 # once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
 PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
@@ -439,6 +442,8 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
             failures.append(f"{name}@{row.get('point', 'main')}:stage{stage}")
         return row
 
+    # P1 and P2 first: their host times before any profiler session
+    probe_kernels(torch, dev, record)
     dvals = torch.linspace(425.0, 905.0, D_FULL, device=dev)
     interval = float(dvals[1] - dvals[0])
     for s, (C, D, h, w) in enumerate(stage_shapes(), start=1):
@@ -463,7 +468,6 @@ def phase_kernels(torch, batch, train_batch, stream_scene, dev):
     feature_kernels(torch, uniform, tagged(record, "feature"))
     stream_kernels(torch, dev, uniform, tagged(record, "stream"), stream_scene)
     tt_kernels(torch, dev, uniform, record)
-    probe_kernels(torch, dev, record)
 
     train_kernels(torch, dev, uniform, record, train_batch)
     protocol_kernels(torch, dev, uniform, record)
@@ -826,62 +830,98 @@ def tt_kernels(torch, dev, uniform, record):
         torch.cuda.empty_cache()
 
 
+def host_ms(torch, fn, reps: int) -> float:
+    """Host ms of one call of ``fn``: the host clock around the enqueue of
+    ``reps`` back-to-back calls (no sync inside), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
+
+
 def probe_kernels(torch, dev, record):
     """P1 at the probe's input (8 rows, nseg 4, ``x = arange``, offsets
-    ``128·i``) and on a 192 KB band (nseg 48, seeded values, unaligned
-    offsets; rows tagged ``"point": "wide"``); P2's three gather forms and
-    the int16 arithmetic at the probe's (64, 128) seeded inputs. Each must
-    equal its plain version bit for bit. These toys are launch-bound: their
-    bytes take nanoseconds, a launch microseconds, and the wrapper's host
-    path (checks, the ctypes call) sets ``ms``; ``device_ms`` is the
-    kernel's own time under the profiler."""
+    ``128·i``), on a 192 KB band (nseg 48) and on a 2 MB band (nseg 512),
+    both with seeded values at unaligned offsets (rows tagged ``"point":
+    "wide"``); P2's three gather forms and the int16 arithmetic at the
+    probe's (64, 128) seeded inputs, and the three forms on rows past 48 KB,
+    (64, 16384) fp32 and (8, 65536) bf16 sources (``"wide"``). Each must
+    equal its plain version bit for bit. Each row holds the call's ``ms``
+    (CUDA events around back-to-back calls), ``host_ms`` (the host clock
+    around their enqueue) and ``device_ms`` (the kernel under the profiler);
+    P2's rows hold ``torch.gather``'s three beside them. Every time is taken
+    before the first device time: a ``torch.profiler`` session leaves each
+    later launch of the process slower on the host (PERF.md). The bound
+    counts the bytes the call needs: for P1 the slices its starts name, each
+    once."""
     import numpy as np
 
     from cds_mvsnet_tpu_torch.ops import kernels as K
     from cds_mvsnet_tpu_torch.tools.probe_gather16 import FORMS, inputs
 
+    cases = []  # [name, stage, kernel call, plain call, library call or None, bytes, flops, extra]
+
+    def check(name, stage, call, plain, library, bytes_moved, flops, extra):
+        got = call()
+        torch.cuda.synchronize()
+        want = plain()
+        extra.update(max_abs_err=float((got - want).nan_to_num().abs().max()),
+                     ok=torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        cases.append([name, stage, call, plain, library, bytes_moved(got), flops, extra])
+
     rng = np.random.default_rng(SEED)
-    for nseg in (4, 48):
+    for nseg in (4, 48, 512):
         if nseg == 4:
             x = torch.arange(8 * 128 * nseg, dtype=torch.float32, device=dev).reshape(8, -1)
             offs = torch.arange(nseg, dtype=torch.int32, device=dev) * 128
         else:
             x = torch.as_tensor(rng.standard_normal((8, 128 * nseg)).astype(np.float32), device=dev)
             offs = torch.as_tensor(rng.integers(0, 128 * nseg, nseg).astype(np.int32), device=dev)
-        got = K.lane_slice_sum(x, offs)
-        torch.cuda.synchronize()
-        want = K.lane_slice_sum_plain(x, offs)
-        record("lane_slice_sum", f"nseg{nseg}", float((got - want).abs().max()), "bit for bit", torch.equal(got, want),
-               timed(torch, lambda: K.lane_slice_sum(x, offs), 100),
-               timed(torch, lambda: K.lane_slice_sum_plain(x, offs), 10),
-               None, (x.numel() + nseg + got.numel()) * 4, x.numel(), PEAK_FP32_FLOPS,
-               {"shape": list(x.shape), "offsets": offs.tolist()[:8],
-                "device_ms": kernel_device_ms(torch, lambda: K.lane_slice_sum(x, offs), "lane_slice_kernel"),
-                **({"point": "wide"} if nseg == 48 else {})})
+        starts = (torch.div(offs.long(), 128, rounding_mode="floor") * 128).clamp(0, 128 * (nseg - 1))
+        slices = int(torch.unique(starts).numel())
+        check("lane_slice_sum", f"nseg{nseg}", lambda x=x, offs=offs: K.lane_slice_sum(x, offs),
+              lambda x=x, offs=offs: K.lane_slice_sum_plain(x, offs), None,
+              lambda got, x=x, nseg=nseg, slices=slices: (x.shape[0] * 128 * slices + nseg + got.numel()) * 4,
+              x.numel(), {"shape": list(x.shape), "offsets": offs.tolist()[:8], "slices_read": slices,
+                          **({"point": "wide"} if nseg > 4 else {})})
     src_np, idx_np = inputs()
-    src, idx = torch.as_tensor(src_np, device=dev), torch.as_tensor(idx_np, device=dev)
-    idx64 = idx.long()
-    io_bytes = (src.numel() + idx.numel() + src.numel()) * 4
-    for form, (vdt, idt) in FORMS.items():
-        got = K.row_gather(src, idx, vdt, idt)
-        torch.cuda.synchronize()
-        want = K.row_gather_plain(src, idx, vdt, idt)
-        values = src.to(vdt)
-        record("row_gather", form, float((got - want).abs().max()), "bit for bit",
-               torch.equal(got.view(torch.int32), want.view(torch.int32)),
-               timed(torch, lambda: K.row_gather(src, idx, vdt, idt), 100),
-               timed(torch, lambda: K.row_gather_plain(src, idx, vdt, idt), 10),
-               timed(torch, lambda: torch.gather(values, 1, idx64), 100), io_bytes, 0, PEAK_FP32_FLOPS,
-               {"shape": list(src.shape), "library": "torch.gather on the values in their type, int64 indices",
-                "device_ms": kernel_device_ms(torch, lambda: K.row_gather(src, idx, vdt, idt), "row_gather_kernel"),
-                "library_device_ms": kernel_device_ms(torch, lambda: torch.gather(values, 1, idx64), "gather")})
-    got = K.int16_arith(src)
-    torch.cuda.synchronize()
-    want = K.int16_arith_plain(src)
-    record("int16_arith", "i16_arith", float((got - want).abs().max()), "bit for bit", torch.equal(got, want),
-           timed(torch, lambda: K.int16_arith(src), 100), timed(torch, lambda: K.int16_arith_plain(src), 10),
-           None, 2 * src.numel() * 4, src.numel(), PEAK_FP32_FLOPS,
-           {"shape": list(src.shape), "device_ms": kernel_device_ms(torch, lambda: K.int16_arith(src), "int16_arith")})
+    shapes = [(torch.as_tensor(src_np, device=dev), torch.as_tensor(idx_np, device=dev), None)]
+    for (R, n), sdt in (((64, 16384), torch.float32), ((8, 65536), torch.bfloat16)):
+        g = np.random.default_rng(SEED)
+        src = torch.as_tensor(g.standard_normal((R, n)).astype(np.float32), device=dev).to(sdt)
+        idx = torch.as_tensor(g.integers(-n - 64, n + 64, (R, n)).astype(np.int32), device=dev)
+        shapes.append((src, idx, "wide"))
+    for src, idx, point in shapes:
+        idx64 = idx.long().remainder(src.shape[1])  # torch.gather takes no index outside [0, L)
+        for form, (vdt, idt) in FORMS.items():
+            values = src.to(vdt)
+            check("row_gather", form if point is None else f"{form}@{src.shape[0]}x{src.shape[1]}",
+                  lambda src=src, idx=idx, vdt=vdt, idt=idt: K.row_gather(src, idx, vdt, idt),
+                  lambda src=src, idx=idx, vdt=vdt, idt=idt: K.row_gather_plain(src, idx, vdt, idt),
+                  lambda values=values, idx64=idx64: torch.gather(values, 1, idx64),
+                  lambda got, src=src, idx=idx: src.numel() * src.element_size() + idx.numel() * 4 + got.numel() * 4,
+                  0, {"shape": list(src.shape), "source": str(src.dtype).replace("torch.", ""),
+                      "library": "torch.gather on the values in their type, int64 indices in [0, L)",
+                      **({"point": point} if point else {})})
+    src = shapes[0][0]
+    check("int16_arith", "i16_arith", lambda: K.int16_arith(src), lambda: K.int16_arith_plain(src), None,
+          lambda got: 2 * src.numel() * 4, src.numel(), {"shape": list(src.shape)})
+    for case in cases:  # times first
+        name, _, call, plain, library, _, _, extra = case
+        extra.update(ms=timed(torch, call, 100), host_ms=host_ms(torch, call, 100), plain_ms=timed(torch, plain, 10))
+        if library is not None:
+            extra.update(library_ms=timed(torch, library, 100), library_host_ms=host_ms(torch, library, 100))
+    symbols = {"lane_slice_sum": "lane_slice_kernel", "row_gather": "row_gather", "int16_arith": "int16_arith"}
+    for name, stage, call, plain, library, bytes_moved, flops, extra in cases:  # then device times
+        extra["device_ms"] = kernel_device_ms(torch, call, symbols[name])
+        if library is not None:
+            extra["library_device_ms"] = kernel_device_ms(torch, library, "gather")
+        record(name, stage, extra.pop("max_abs_err"), "bit for bit", extra.pop("ok"), extra.pop("ms"),
+               extra.pop("plain_ms"), extra.pop("library_ms", None), bytes_moved, flops, PEAK_FP32_FLOPS, extra)
 
 
 def route_kernels(torch, batch, uniform, record, s, shape, hyp):
@@ -1127,6 +1167,22 @@ def train_val_kernels(torch, dev, uniform, record):
     fp32_kernels(torch, dev, uniform, tagged(record, "train_val"), rig, train_val_stage_shapes(), (torch.float32,))
 
 
+def grid_sample_bf16_ms(torch, src, px, py):
+    """``F.grid_sample`` on K9's bf16 source at its shape, the grid in bf16
+    too (the call takes one dtype, so the coordinates are rounded: not K9's
+    function, hence no ``library_ms``): its ms, or what it raised."""
+    import torch.nn.functional as F
+
+    D, h, w = px.shape
+    src_nchw = src.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1], -1).reshape(1, D * h, w, 2).to(src.dtype)
+    try:
+        return timed(torch, lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                                  align_corners=True), 10)
+    except RuntimeError as e:
+        return f"raises: {str(e).splitlines()[0][:160]}"
+
+
 def fp32_kernels(torch, dev, uniform, record, rig, shapes, gather_dtypes):
     """K9 (in each of ``gather_dtypes``) and K2 in fp32 against their plain
     versions at the stage ``shapes`` of ``rig`` (two views with finite
@@ -1167,8 +1223,10 @@ def fp32_kernels(torch, dev, uniform, record, rig, shapes, gather_dtypes):
                 lib_ms = timed(torch, lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
                                                             align_corners=True), 10)
                 del src_nchw, grid
+                extra = {}
             else:  # no PyTorch call samples a bf16 source with fp32 coordinates
                 lib_ms = None
+                extra = {"grid_sample_bf16_ms": grid_sample_bf16_ms(torch, src, px, py)}
             es = src.element_size()
             record(name, s, float(d.max()), tol, ok,
                    timed(torch, lambda: K.warp_gather(src, px, py), 10),
@@ -1176,7 +1234,7 @@ def fp32_kernels(torch, dev, uniform, record, rig, shapes, gather_dtypes):
                    lib_ms, src.numel() * es + 2 * px.numel() * 4 + out.numel() * es, D * h * w * (8 * C + 20),
                    PEAK_FP32_FLOPS, {"shape": [C, D, h, w], "exact_frac": float((d == 0).float().mean()),
                                      "device_ms": kernel_device_ms(torch, lambda: K.warp_gather(src, px, py),
-                                                                  "gather_kernel")})
+                                                                  "gather_kernel"), **extra})
             del src, out, want, d
 
         # K2 in fp32: 3xTF32 products of each term, 27·C terms summed in
@@ -2639,14 +2697,16 @@ def main() -> int:
             "per": ("step" if name in TRAIN_KERNEL_NAMES else "map" if name in FP32_KERNEL_NAMES
                     else "probe run" if name in PROBE_NAMES else "request"),
             "per_stage": [{k: r[k] for k in ("point", "stage", "ms", "plain_ms", "library_ms", "bound_ms",
-                                             "max_abs_err", "k2_plus_k7_ms", "device_ms", "main_device_ms",
+                                             "max_abs_err", "k2_plus_k7_ms", "host_ms", "device_ms",
+                                             "main_device_ms", "library_host_ms", "library_device_ms",
                                              "fma_floor_ms") if k in r}
                           for r in rows],
         })
         for point in sorted({r.get("point") for r in results[name]} - points):
             kernels[-1][f"{point}_per_stage"] = [
                 {k: r[k] for k in ("layer", "bucket", "stage", "ms", "plain_ms", "library_ms", "bound_ms",
-                                   "max_abs_err", "device_ms", "library_device_ms", "k2_plus_k7_ms", "fma_floor_ms")
+                                   "max_abs_err", "host_ms", "device_ms", "library_host_ms", "library_device_ms",
+                                   "k2_plus_k7_ms", "fma_floor_ms")
                  if k in r}
                 for r in results[name] if r.get("point") == point]
         if name in PROBE_NAMES:  # the probes run only in their tools
@@ -2659,7 +2719,8 @@ def main() -> int:
                    for key in ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "plain_ms")}}
         if name == "warp_gather":  # the bf16 instantiation, off the main path
             kernels[-1]["bf16_per_stage"] = [
-                {k: r[k] for k in ("stage", "ms", "plain_ms", "bound_ms", "max_abs_err", "device_ms")}
+                {k: r[k] for k in ("stage", "ms", "plain_ms", "bound_ms", "max_abs_err", "device_ms",
+                                   "grid_sample_bf16_ms")}
                 for r in results["warp_gather_bf16"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)

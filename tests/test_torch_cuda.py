@@ -1127,20 +1127,37 @@ def bits(t):
     return t.contiguous().view(torch.int32)
 
 
-@pytest.mark.parametrize("case", ["probe", "unaligned", "outside", "rows"])
-def test_lane_slice_sum_matches_plain(gen, case):
-    """P1 bit for bit: the probe's input, a 192 KB band (nseg 48) at
-    unaligned data-given offsets, offsets outside the band (clamped), and
-    fewer rows than the probe's 8."""
-    rows, nseg = {"probe": (8, 4), "unaligned": (8, 48), "outside": (8, 6), "rows": (3, 5)}[case]
+def lane_inputs(gen, rows, nseg, case):
+    """P1's band and offsets: the probe's input, or seeded values at
+    data-given offsets, some repeated (``repeated``), some outside the band
+    (``outside``, clamped), or the band 4 bytes into its buffer
+    (``unaligned``: no 16-byte alignment)."""
     if case == "probe":
         x = torch.arange(8 * 128 * nseg, dtype=torch.float32, device="cuda").reshape(8, -1)
-        offs = torch.arange(nseg, dtype=torch.int32, device="cuda") * 128
-    else:
-        x = uniform(gen, (rows, 128 * nseg), dtype=torch.float32)
-        offs = (torch.rand(nseg, generator=gen, device="cuda") * 128 * nseg).to(torch.int32)
-        if case == "outside":
-            offs[:3] = torch.tensor([-5, 128 * nseg + 7, -1000], dtype=torch.int32)
+        return x, torch.arange(nseg, dtype=torch.int32, device="cuda") * 128
+    x = uniform(gen, (rows, 128 * nseg), dtype=torch.float32)
+    if case == "unaligned":
+        x = uniform(gen, (rows * 128 * nseg + 1,), dtype=torch.float32)[1:].view(rows, 128 * nseg)
+        assert x.data_ptr() % 16 == 4
+    offs = (torch.rand(nseg, generator=gen, device="cuda") * 128 * nseg).to(torch.int32)
+    if case == "outside":
+        offs[:3] = torch.tensor([-5, 128 * nseg + 7, -1000], dtype=torch.int32)
+    if case == "repeated":
+        offs[: nseg // 2] = offs[nseg - 1]
+    return x, offs
+
+
+@pytest.mark.parametrize("case,rows,nseg", [
+    ("probe", 8, 4), ("unaligned", 8, 48), ("outside", 8, 6), ("rows", 3, 5),
+    *[(case, rows, nseg) for case in ("repeated", "unaligned", "outside") for rows in (8, 3) for nseg in (57, 64, 512)],
+])
+def test_lane_slice_sum_matches_plain(gen, case, rows, nseg):
+    """P1 bit for bit: the probe's input; a 192 KB band (nseg 48) at
+    unaligned data-given offsets; offsets outside the band (clamped); fewer
+    rows than the probe's 8; and bands past one block's shared memory (nseg
+    57, 64 and 512, the last 2 MB at 8 rows) with repeated, unaligned and
+    out-of-band starts at 8 and 3 rows, one launch a call."""
+    x, offs = lane_inputs(gen, rows, nseg, case)
     before = K.lane_slice_sum.launches
     got = K.lane_slice_sum(x, offs)
     torch.cuda.synchronize()
@@ -1148,23 +1165,52 @@ def test_lane_slice_sum_matches_plain(gen, case):
     assert torch.equal(got, K.lane_slice_sum_plain(x, offs))
 
 
+# P2's shapes: the probe's, ragged rows (1001 lanes: no 16-byte staging),
+# rows past 48 KB in either value type (fp32 values at 16384 and 65536
+# lanes: 64 and 256 KB, the latter past shared memory; bf16 values at 65536
+# and 120000: 128 and 240 KB)
+GATHER_SHAPES = ((64, 128), (5, 1000), (5, 1001), (3, 16384), (2, 65536), (2, 120000))
+
+
+def gather_inputs(gen, R, n, src_dtype):
+    """Seeded values and indices, with indices from the row's end, outside
+    [-L, L) (NaN) and wrapping in int16."""
+    src = uniform(gen, (R, n), -4.0, 4.0, src_dtype)
+    idx = (torch.rand((R, n), generator=gen, device="cuda") * n).to(torch.int32)
+    idx[0, :6] = torch.tensor([-1, -n, n, 10 * n, -n - 1, 65536 + 3], dtype=torch.int32)
+    return src, idx
+
+
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int16])
 @pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
 def test_row_gather_matches_plain(gen, value_dtype, index_dtype, src_dtype):
     """P2's gather bit for bit, with indices from the row's end, outside
-    [-L, L) (NaN) and wrapping in int16, on the probe's (64, 128) and on
-    rows of 1000."""
-    for R, n in ((64, 128), (5, 1000)):
-        src = uniform(gen, (R, n), -4.0, 4.0, src_dtype)
-        idx = (torch.rand((R, n), generator=gen, device="cuda") * n).to(torch.int32)
-        idx[0, :6] = torch.tensor([-1, -n, n, 10 * n, -n - 1, 65536 + 3], dtype=torch.int32)
+    [-L, L) (NaN) and wrapping in int16, at GATHER_SHAPES: rows staged in
+    shared memory below and above 48 KB, and rows gathered from device
+    memory past it; one launch a call."""
+    for R, n in GATHER_SHAPES:
+        src, idx = gather_inputs(gen, R, n, src_dtype)
         before = K.row_gather.launches
         got = K.row_gather(src, idx, value_dtype, index_dtype)
         torch.cuda.synchronize()
         assert K.row_gather.launches == before + 1
-        assert torch.equal(bits(got), bits(K.row_gather_plain(src, idx, value_dtype, index_dtype)))
-        assert bool(torch.isnan(got[0, 2]))
+        assert torch.equal(bits(got), bits(K.row_gather_plain(src, idx, value_dtype, index_dtype))), (R, n)
+        if index_dtype == torch.int32 or n <= 32767:
+            assert bool(torch.isnan(got[0, 2]))
+
+
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_unaligned_source(gen, src_dtype):
+    """A source 2 or 4 bytes into its buffer (no 16-byte staging loads) in
+    each form, bit for bit."""
+    for R, n in ((4, 4096), (2, 65536)):
+        src = uniform(gen, (R * n + 1,), -4.0, 4.0, src_dtype)[1:].view(R, n)
+        idx = (torch.rand((R, n), generator=gen, device="cuda") * 2 * n - n).to(torch.int32)
+        assert src.data_ptr() % 16 != 0
+        for v, i in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16), (torch.bfloat16, torch.int32)):
+            got = K.row_gather(src, idx, v, i)
+            assert torch.equal(bits(got), bits(K.row_gather_plain(src, idx, v, i))), (R, n, v, i)
 
 
 @pytest.mark.parametrize("shape", [(64, 128), (3, 40000)])
@@ -1177,11 +1223,91 @@ def test_int16_arith_matches_plain(gen, shape):
     assert torch.equal(got, K.int16_arith_plain(src))
 
 
+def test_current_stream_is_torch_s(gen):
+    """The light launch path's raw stream handle (``_launch.current_stream``,
+    a private torch function) is ``torch.cuda.current_stream().cuda_stream``,
+    outside and inside a ``torch.cuda.stream(side)`` block."""
+    from cds_mvsnet_tpu_torch.ops.kernels._launch import current_stream
+
+    assert current_stream(0) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert current_stream(0) == torch.cuda.current_stream().cuda_stream == side.cuda_stream
+    assert current_stream(0) == torch.cuda.current_stream().cuda_stream != side.cuda_stream
+
+
+def probe_calls(gen):
+    """Each probe kernel at a shape past the parent's caps: ``(kernel, fn,
+    inputs)``, the call being ``fn(*inputs)``: P1 on a 2 MB band, P2 in each
+    form on 64 KB and 256 KB rows, the int16 arithmetic."""
+    calls = [(K.lane_slice_sum, K.lane_slice_sum, lane_inputs(gen, 8, 512, "repeated"))]
+    for R, n in ((3, 16384), (2, 65536)):
+        src, idx = gather_inputs(gen, R, n, torch.float32)
+        for v, i in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16), (torch.bfloat16, torch.int32)):
+            calls.append((K.row_gather, lambda src, idx, v=v, i=i: K.row_gather(src, idx, v, i), (src, idx)))
+    calls.append((K.int16_arith, K.int16_arith, (uniform(gen, (3, 40000), dtype=torch.float32),)))
+    return calls
+
+
+def test_probe_kernels_on_a_side_stream(gen):
+    """P1 and P2 called under ``torch.cuda.stream(side)`` launch on that
+    stream: their inputs are written there, behind a long sleep, from zeros
+    to the real values, and the result equals the eager call on the default
+    stream bit for bit (a launch on another stream would read the zeros)."""
+    for kernel, fn, inputs in probe_calls(gen):
+        want = fn(*inputs)
+        late = [torch.zeros_like(t) for t in inputs]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(1_000_000)
+            for dst, src in zip(late, inputs):
+                dst.copy_(src)
+            before = kernel.launches
+            got = fn(*late)
+            assert kernel.launches == before + 1
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(got), bits(want))
+
+
+def test_probe_kernels_replay_in_a_cuda_graph(gen):
+    """P1 and P2 captured in a ``torch.cuda.CUDAGraph`` and replayed equal
+    the eager call bit for bit, on the captured inputs and on new values
+    copied into them; capture counts one launch a call, replay none."""
+    for kernel, fn, inputs in probe_calls(gen):
+        want = fn(*inputs)
+        static = [t.clone() for t in inputs]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*static)  # warm-up on a side stream, as torch's capture wants
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernel.launches
+        with torch.cuda.graph(graph):
+            got = fn(*static)
+        assert kernel.launches == before + 1
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(bits(got), bits(want))
+        fresh = [t.flip(-1).contiguous() for t in inputs]
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(bits(got), bits(fn(*fresh)))
+
+
 def test_probe_wrappers_raise_rather_than_fall_back(gen):
+    """Tensors on two devices or of a wrong type raise on the card; a band
+    4 bytes into its buffer, which the bulk copy once refused, now runs."""
     x = uniform(gen, (8, 129 * 4), dtype=torch.float32)
     offs = torch.zeros(4, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="aligned"):  # a view 4 bytes into the band
-        K.lane_slice_sum(x.view(-1)[1:1 + 512 * 8].view(8, 512), offs)
+    view = x.view(-1)[1:1 + 512 * 8].view(8, 512)
+    assert torch.equal(K.lane_slice_sum(view, offs), K.lane_slice_sum_plain(view, offs))
     with pytest.raises(ValueError, match="devices"):
         K.lane_slice_sum(x[:, :512].contiguous(), offs.cpu())
     with pytest.raises(ValueError, match="devices"):

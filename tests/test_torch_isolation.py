@@ -51,7 +51,8 @@ for name in {FORBIDDEN!r}:
     sys.modules[name] = None
 import cds_mvsnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for new in ("tools.tt_feasibility", "tools.same_steps", "tools.nondeterministic_ops", "ops.index"):
+for new in ("tools.tt_feasibility", "tools.same_steps", "tools.nondeterministic_ops", "ops.index",
+            "tools.time_launch_path"):
     assert "cds_mvsnet_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)

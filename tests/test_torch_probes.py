@@ -90,9 +90,14 @@ def test_lane_slice_rows_and_checks():
     np.testing.assert_array_equal(got, x[:, 128:] + x[:, :128])
     with pytest.raises(ValueError, match="rows"):
         K.lane_slice_sum(torch.zeros(9, 128), torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="shared memory"):  # 8 rows x 57 slices: 228 KB of band
-        K.lane_slice_sum(torch.zeros(8, 128 * 57), torch.zeros(57, dtype=torch.int32))
-    K.lane_slice_sum(torch.zeros(8, 128 * 56), torch.zeros(56, dtype=torch.int32))  # the largest band
+    # bands past one block's shared memory (57 slices: 228 KB; 64: 256 KB),
+    # which the port once refused, against the JAX kernel, with repeated
+    # starts and starts past the band (the JAX kernel clamps those too)
+    for nseg in (57, 64):
+        x = rng.standard_normal((8, 128 * nseg)).astype(np.float32)
+        offs = rng.integers(0, 128 * nseg, nseg).astype(np.int32)
+        offs[:6] = [offs[7], offs[7], 128 * nseg, 128 * nseg + 300, 128 * (nseg - 1) + 5, 0]
+        np.testing.assert_array_equal(port_lane_slice(x, offs), jax_lane_slice(x, offs))
     with pytest.raises(ValueError, match="offsets"):
         K.lane_slice_sum(torch.zeros(8, 500), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="offs"):
@@ -109,6 +114,9 @@ def gather_inputs():
     return src, idx
 
 
+JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int32: jnp.int32, torch.int16: jnp.int16}
+
+
 def jax_gather(src, idx, vdt, idt):
     kern = functools.partial(JAX_P2._gather_kernel, vdt=vdt, idt=idt)
     out = pl.pallas_call(kern, out_shape=jax.ShapeDtypeStruct(src.shape, jnp.float32), interpret=True)(
@@ -121,8 +129,7 @@ def jax_gather(src, idx, vdt, idt):
 def test_row_gather_plain_matches_jax_kernel(form, src_dtype):
     vdt, idt = probe_gather16.FORMS[form]
     src, idx = gather_inputs()
-    want = jax_gather(src, idx, {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[vdt],
-                      {torch.int32: jnp.int32, torch.int16: jnp.int16}[idt])
+    want = jax_gather(src, idx, JNP[vdt], JNP[idt])
     src_t = torch.from_numpy(src).to(src_dtype)
     if src_dtype == torch.bfloat16 and vdt == torch.float32:  # the JAX form takes the rounded values
         want = jax_gather(src_t.float().numpy(), idx, jnp.float32, jnp.int32 if idt == torch.int32 else jnp.int16)
@@ -153,11 +160,62 @@ def test_row_gather_checks():
         K.row_gather(src, idx.long())
     with pytest.raises(ValueError, match="index type"):
         K.row_gather(src, idx, torch.float16)
-    with pytest.raises(ValueError, match="shared memory"):  # 12289 fp32 values: over 48 KB
-        K.row_gather(torch.zeros(1, 12289), torch.zeros(1, 12289, dtype=torch.int32))
-    K.row_gather(torch.zeros(1, 12289), torch.zeros(1, 12289, dtype=torch.int32), torch.bfloat16)
+    # rows past 48 KB, which the port once refused, against the JAX kernel:
+    # (1, 12289) in fp32 values, (2, 16384) in each form
+    rng = np.random.default_rng(6)
+    for (R, n), forms in (((1, 12289), ["ctrl_fp32_i32"]), ((2, 16384), list(probe_gather16.FORMS))):
+        values = rng.standard_normal((R, n)).astype(np.float32)
+        at = rng.integers(-n - 40, n + 40, (R, n)).astype(np.int32)
+        at[0, :3] = [-1, n, 65536 + 7]
+        for form in forms:
+            vdt, idt = probe_gather16.FORMS[form]
+            want = jax_gather(values, at, JNP[vdt], JNP[idt])
+            got = K.row_gather(torch.from_numpy(values), torch.from_numpy(at), vdt, idt).numpy()
+            assert np.isnan(got[0, 1])
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     with pytest.raises(ValueError, match="int16_arith"):
         K.int16_arith(src.double())
+
+
+def _bad_calls():
+    """One bad call for each check of the three wrappers: (id, call, the
+    message it must raise)."""
+    f, i32 = torch.zeros, torch.int32
+    offs4 = f(4, dtype=i32)
+    src, idx = f(4, 128), f(4, 128, dtype=i32)
+    return [
+        ("lane_offs_2d", lambda: K.lane_slice_sum(f(8, 512), f(1, 4, dtype=i32)), r"lane_slice_sum: offs \(1, 4\) torch.int32"),
+        ("lane_offs_dtype", lambda: K.lane_slice_sum(f(8, 512), f(4, dtype=torch.int64)), r"offs \(4,\) torch.int64"),
+        ("lane_x_dtype", lambda: K.lane_slice_sum(f(8, 512, dtype=torch.float64), offs4), r"x \(8, 512\) torch.float64"),
+        ("lane_x_1d", lambda: K.lane_slice_sum(f(512), offs4), r"lane_slice_sum: x \(512,\)"),
+        ("lane_width", lambda: K.lane_slice_sum(f(8, 500), offs4), r"x \(8, 500\) for 4 offsets"),
+        ("lane_no_offsets", lambda: K.lane_slice_sum(f(8, 0), f(0, dtype=i32)), r"x \(8, 0\) for 0 offsets"),
+        ("lane_rows", lambda: K.lane_slice_sum(f(9, 512), offs4), r"9 rows, the kernel takes 1 to 8"),
+        ("lane_no_rows", lambda: K.lane_slice_sum(f(0, 512), offs4), r"0 rows"),
+        ("lane_contiguous", lambda: K.lane_slice_sum(f(512, 8).t(), offs4), r"inputs must be contiguous"),
+        ("gather_shape", lambda: K.row_gather(src, idx[:, :64]), r"row_gather: src \(4, 128\), idx \(4, 64\)"),
+        ("gather_1d", lambda: K.row_gather(src[0], idx[0]), r"row_gather: src \(128,\)"),
+        ("gather_src_dtype", lambda: K.row_gather(src.half(), idx), r"src torch.float16 must be fp32 or bf16"),
+        ("gather_idx_dtype", lambda: K.row_gather(src, idx.long()), r"idx torch.int64 int32"),
+        ("gather_value_type", lambda: K.row_gather(src, idx, torch.float16), r"value type torch.float16"),
+        ("gather_index_type", lambda: K.row_gather(src, idx, torch.float32, torch.int64), r"index type torch.int64"),
+        ("gather_empty", lambda: K.row_gather(f(0, 128), f(0, 128, dtype=i32)), r"row_gather: empty input"),
+        ("gather_contiguous", lambda: K.row_gather(f(128, 4).t(), idx), r"row_gather: inputs must be contiguous"),
+        ("arith_dtype", lambda: K.int16_arith(src.double()), r"int16_arith: src \(4, 128\) torch.float64"),
+        ("arith_1d", lambda: K.int16_arith(src[0]), r"int16_arith: src \(128,\)"),
+        ("arith_empty", lambda: K.int16_arith(f(0, 128)), r"src must be non-empty and contiguous"),
+        ("arith_contiguous", lambda: K.int16_arith(f(128, 4).t()), r"src must be non-empty and contiguous"),
+    ]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _bad_calls()])
+def test_probe_wrapper_checks_raise_with_their_message(case):
+    """Every check of ``lane_slice_sum``, ``row_gather`` and ``int16_arith``
+    raises ``ValueError`` with its message on a bad input, on the CPU as on
+    the card (the checks come before the device test)."""
+    call, message = {c[0]: c[1:] for c in _bad_calls()}[case]
+    with pytest.raises(ValueError, match=message):
+        call()
 
 
 def test_probe_entry_points_on_the_cpu(capsys):
@@ -167,8 +225,7 @@ def test_probe_entry_points_on_the_cpu(capsys):
     results = probe_gather16.main([], device="cpu")
     src, idx = probe_gather16.inputs()
     for name, (vdt, idt) in probe_gather16.FORMS.items():
-        want = jax_gather(src, idx, {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[vdt],
-                          {torch.int32: jnp.int32, torch.int16: jnp.int16}[idt])
+        want = jax_gather(src, idx, JNP[vdt], JNP[idt])
         assert results[name] == {"ok": True, "checksum": float(want.sum())}
     assert results["i16_arith"]["ok"]
     lines = capsys.readouterr().out.splitlines()
