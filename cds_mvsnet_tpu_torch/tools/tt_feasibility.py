@@ -38,6 +38,8 @@ import time
 
 import torch
 
+from ._common import all_kernels
+
 # the buckets of scripts/tt_eval.sh's per-scene table (RES_H x RES_W)
 BUCKETS = ("1088x1920", "896x1600", "544x960")
 V, D = 10, 256  # tt_eval.sh: --num_view 10 --numdepth 256
@@ -52,13 +54,6 @@ def parse_bucket(name: str) -> tuple[int, int]:
     if h % 32 or w % 32:
         raise SystemExit(f"bucket {name}: H and W must be multiples of 32 (the FeatureNet and UNet strides)")
     return h, w
-
-
-def all_kernels() -> dict:
-    from ..ops import kernels as K
-
-    return {k.__name__: k for k in (*K.KERNELS, *K.TRAIN_KERNELS, *K.FP32_KERNELS, *K.ROUTE_KERNELS,
-                                    *K.PROBE_KERNELS)}
 
 
 def quantiles(diff: torch.Tensor) -> tuple[float, float]:

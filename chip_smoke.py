@@ -134,7 +134,13 @@ Phases, one JSON line each:
 7. custom: the custom-scene path (COLMAP workspace -> ``data/colmap.py`` ->
    ``test_cli --dataset general`` at 864x1152 in bf16 -> normal fusion ->
    ``score_points`` and ``eval_depth_map`` against the scene's geometry);
-8. summary: one ``{"kernels": [...]}`` line (K1-K9, K6 and K7 in fp32 with
+8. tools: the port's ``profile_stages`` (and ``--marginals``),
+   ``bench_scan``, ``bench_train`` and ``train_convergence`` through their
+   ``main`` at the JAX tools' points, each tool's JSON line on a line of its
+   own: exact launches of the prefix requests, the scan's maps and the bf16
+   train step, prefix stages bit for bit, ``.ply`` vertex counts equal to
+   the line's points, a decreasing loss (``phase_tools``);
+9. summary: one ``{"kernels": [...]}`` line (K1-K9, K6 and K7 in fp32 with
    the mixed path's launches, P1 and P2; rows of other points under
    ``<point>_per_stage``, the T&T rows as ``tt_per_stage``), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -212,6 +218,10 @@ TT_BUCKETS = {"1088x1920": (1, 2, 3), "896x1600": (1,), "544x960": (1,)}
 # planes (stage 1: 4/48 = 0.083 in the confidence window), all under the
 # Family row's threshold of 0.1, so its fusion would keep no point
 TT_FIT_STEPS, TT_FIT_H, TT_FIT_W = 60, 256, 320
+# the tools ported from the JAX package's tools/, each at that tool's own
+# point (its module constants and flag defaults), in the order they run
+TOOLS = (("profile_stages", ["--reps", "3"]), ("profile_stages", ["--marginals"]), ("bench_scan", []),
+         ("bench_train", ["--bs", str(TRAIN_B)]), ("train_convergence", []))
 
 KERNEL_INFO = {
     "warp_entropy": ("cds_mvsnet_tpu_torch/csrc/warp.cu", "cds_mvsnet_tpu/ops/pallas/warp.py:1342"),
@@ -268,8 +278,10 @@ KERNEL_SYMBOLS = ("void warp_kernel", "void warp_entropy_kernel", "void conv3d_b
                   "lane_slice_kernel", "void row_gather_kernel", "void row_gather_direct_kernel",
                   "int16_arith_kernel")
 # launches of one request at B=1: K1 once per source view and stage, K2/K3
-# once per stage, K4 once (conv01 over the whole 2(V-1)-image stack)
-PER_REQUEST = {"warp_entropy": 3 * (V - 1), "conv3d_bn_relu": 3, "exit_softargmin": 3, "dynconv_branches": 1}
+# once per stage (PER_STAGE), K4 once (conv01 over the whole 2(V-1)-image
+# stack)
+PER_STAGE = {"warp_entropy": V - 1, "conv3d_bn_relu": 1, "exit_softargmin": 1}
+PER_REQUEST = {**{name: 3 * n for name, n in PER_STAGE.items()}, "dynconv_branches": 1}
 # launches of one train step: each K5 kernel once per batch element, source
 # view and stage for the sweep, and as often for the GT-depth warp
 PER_STEP = {name: TRAIN_B * 3 * (V - 1) * 2 for name in TRAIN_KERNEL_NAMES}
@@ -2623,6 +2635,103 @@ def phase_custom(torch, dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def run_tool(name: str, argv: list[str]):
+    """``cds_mvsnet_tpu_torch.tools.<name>.main(argv, device="cuda")`` with
+    its output captured: its JSON line is printed on a line of its own, its
+    progress lines go to stderr; returns ``(report, seconds)``."""
+    import contextlib
+    import importlib
+    import io
+
+    module = importlib.import_module(f"cds_mvsnet_tpu_torch.tools.{name}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        report = module.main(argv, device="cuda")
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    print("\n".join(lines[:-1]), file=sys.stderr, flush=True)
+    print(lines[-1], flush=True)
+    return report, seconds
+
+
+def tool_problems(name: str, argv: list[str], report: dict) -> list[str]:
+    """What a run of tool ``name`` with ``argv`` must show, from the report
+    its ``main`` returns; the tools phase and the card tests hold each run
+    to it. ``profile_stages``: the line's keys are the JAX tool's and K1's,
+    each prefix's stages equal the full cascade's bit for bit, and a
+    prefix-n request launches n stages' PER_STAGE and K4 once;
+    ``--marginals``: the four split values. ``bench_scan`` at 5-view
+    inference: each leg launches PER_VIEW["bf16"] a view, each ``.ply``
+    holds the line's points, every rate is finite. ``bench_train``: finite
+    losses, a bf16 step PER_STEP scaled to its batch, an fp32 step no
+    kernel. ``train_convergence``: the loss decreases. Launches are held
+    only where the report's device is the card (on the CPU the wrappers
+    run their plain versions)."""
+    import math
+
+    if name == "train_convergence":
+        return [] if report["loss_decreased"] else [
+            f"loss did not decrease ({report['loss_first_epoch']} -> {report['loss_last_epoch']})"]
+    line, out = report["line"], []
+    card = report["device"] == "cuda"
+    if name == "profile_stages" and "--marginals" in argv:
+        split = [k for k in line if k.startswith("stage")]
+        return [] if len(split) == 4 else [f"split {split}"]
+    if name == "profile_stages":
+        from cds_mvsnet_tpu_torch.tools.profile_stages import PREFIXES, line_keys
+
+        if list(line) != line_keys():
+            out.append(f"keys {list(line)} != {line_keys()}")
+        out += [f"{p}: stages differ from the full cascade's" for p, ok in report["prefix_equal"].items() if not ok]
+        for n in PREFIXES if card else ():
+            want = {**{k: n * c for k, c in PER_STAGE.items()}, "dynconv_branches": 1}
+            if report["launches"].get(f"prefix{n}") != want:
+                out.append(f"prefix{n} launches {report['launches'].get(f'prefix{n}')} != {want}")
+    elif name == "bench_scan":
+        out += [f"{k} = {v}" for k, v in line.items() if isinstance(v, float) and not math.isfinite(v)]
+        out += [f"{k}: {line[k]} in the line, {n} in the .ply" for k, n in report["ply_vertices"].items()
+                if line[k] != n]
+        if card and report["nviews"] != V:
+            out.append(f"launches are gated at {V}-view inference, not {report['nviews']}")
+        want = {k: n * report["views"] for k, n in PER_VIEW["bf16"].items() if n}
+        out += [f"{leg} launches {got} != {want}" for leg, got in report["launches"].items() if card and got != want]
+    elif name == "bench_train":
+        out += [f"{mode}: loss not finite" for mode, row in line.items() if not row["loss_finite"]]
+        for mode, got in report["launches"].items() if card else ():
+            want = {k: n * report["bs"] // TRAIN_B for k, n in PER_STEP.items()} if mode == "bf16" else {}
+            if got != want:
+                out.append(f"{mode} step launches {got} != {want}")
+    return out
+
+
+def phase_tools(torch) -> None:
+    """The tools of ``cds_mvsnet_tpu_torch/tools/`` that the JAX package's
+    ``tools/`` has (TOOLS), each through its ``main`` on the card at the JAX
+    tool's point, each run held to :func:`tool_problems`: ``profile_stages``
+    with 3 reps and its ``--marginals``, the default scan of ``bench_scan``,
+    ``bench_train`` at B=2 and ``train_convergence`` at its defaults. A
+    failure raises."""
+    runs, problems = {}, []
+    for name, argv in TOOLS:
+        report, seconds = run_tool(name, argv)
+        key = f"{name} {' '.join(argv)}".strip()
+        problems += [f"{key}: {p}" for p in tool_problems(name, argv, report)]
+        run = {"seconds": seconds}
+        if name == "train_convergence":
+            run["loss"] = [report["loss_first_epoch"], report["loss_last_epoch"]]
+        elif "--marginals" in argv:
+            run["split"] = {k: v for k, v in report["line"].items() if k.startswith("stage")}
+        else:
+            run["launches"] = report["launches"]
+        runs[key] = run
+        torch.cuda.empty_cache()
+    emit({"phase": "tools", "runs": runs, "seconds": sum(r["seconds"] for r in runs.values()),
+          "problems": problems, "ok": not problems})
+    if problems:
+        raise RuntimeError(f"tools phase failed: {problems}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2670,6 +2779,8 @@ def main() -> int:
     del stream_scene
     torch.cuda.empty_cache()
     phase_custom(torch, dev)
+    torch.cuda.empty_cache()
+    phase_tools(torch)
 
     kernels = []
     for name, source_replaces in KERNEL_INFO.items():

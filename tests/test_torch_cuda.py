@@ -1484,3 +1484,105 @@ def test_tt_conv01_matches_plain(gen, H, W):
     bucket (18 x 8 x 1088 x 1920 in), bit for bit."""
     x, ws = dynconv_rig(gen, 18, 8, 11, (3, 5, 7), (H, W))
     assert torch.equal(K.dynconv_branches(x, ws), K.dynconv_branches_plain(x, ws))
+
+
+def smoke_gates(name: str, argv: list[str], report: dict) -> list[str]:
+    """``chip_smoke.tool_problems``: the gates the smoke's tools phase holds
+    a tool's run to."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke.tool_problems(name, argv, report)
+
+
+def test_profile_stages_tool_on_the_card(gen, monkeypatch, capsys):
+    """``tools/profile_stages.py`` at 128x256 (its point's constants patched):
+    each prefix-n request launches K1 4n, K2 n, K3 n, K4 once and nothing
+    else, prefix n's stages equal the full cascade's bit for bit, the line's
+    keys are the JAX tool's and K1's; ``--marginals`` gives the four split
+    values (the smoke's gates)."""
+    from cds_mvsnet_tpu_torch.tools import profile_stages
+
+    monkeypatch.setattr(profile_stages, "H", 128)
+    monkeypatch.setattr(profile_stages, "W", 256)
+    report = profile_stages.main(["--reps", "1"])
+    assert report["device"] == "cuda" and smoke_gates("profile_stages", ["--reps", "1"], report) == []
+    assert report["launches"]["prefix2"] == {"warp_entropy": 8, "conv3d_bn_relu": 2, "exit_softargmin": 2,
+                                             "dynconv_branches": 1}
+    monkeypatch.setattr(profile_stages, "MARGINAL_REPS", 1)
+    marginals = profile_stages.main(["--marginals"])
+    assert smoke_gates("profile_stages", ["--marginals"], marginals) == []
+    split = marginals["line"]
+    assert {k for k in split if k.startswith("stage")} == {"stage2_per_src_view_ms", "stage2_fixed_ms",
+                                                            "stage3_per_src_view_ms", "stage3_fixed_ms"}
+
+
+def test_bench_scan_tool_on_the_card(gen, tmp_path, capsys):
+    """``tools/bench_scan.py`` on a 3-view scan at 128x256 in bf16: each
+    leg launches the product's bf16 counts a map, each ``.ply``'s vertices
+    equal the line's points, every rate finite (the smoke's gates)."""
+    from cds_mvsnet_tpu_torch.tools import bench_scan
+
+    argv = ["--views", "3", "--h", "128", "--w", "256", "--out", str(tmp_path)]
+    report = bench_scan.main(argv)
+    assert report["line"]["backend"] == "cuda" and smoke_gates("bench_scan", argv, report) == []
+    assert report["launches"]["depth"] == {"warp_entropy": 36, "conv3d_bn_relu": 9, "exit_softargmin": 9,
+                                           "dynconv_branches": 3}
+    assert report["line"]["points_jit"] > 0
+
+
+def test_bench_train_tool_on_the_card(gen, monkeypatch, capsys):
+    """``tools/bench_train.py`` at 128x128, B=2: finite losses in fp32 and
+    bf16, K5 48 times forward and 48 backward in a bf16 step, no kernel in
+    an fp32 step (the smoke's gates)."""
+    from cds_mvsnet_tpu_torch.tools import bench_train
+
+    monkeypatch.setattr(bench_train, "H", 128)
+    monkeypatch.setattr(bench_train, "W", 128)
+    report = bench_train.main(["--bs", "2", "--reps", "1"])
+    assert smoke_gates("bench_train", ["--bs", "2", "--reps", "1"], report) == []
+    assert report["launches"] == {"fp32": {}, "bf16": {"warp_sim": 48, "warp_sim_backward": 48}}
+
+
+def test_train_convergence_tool_on_the_card(gen, monkeypatch, capsys):
+    """``tools/train_convergence.py`` at its defaults (10 epochs x 5 steps,
+    64x64, D=48) on the card: the loss decreases."""
+    from cds_mvsnet_tpu_torch.tools import train_convergence
+
+    for k in (*train_convergence.DEFAULTS, "CONV_PLATFORM"):
+        monkeypatch.delenv(k, raising=False)
+    line = train_convergence.main([])
+    assert smoke_gates("train_convergence", [], line) == []
+    assert line["steps_total"] == 50 and len(line["curve"]) == 10
+    assert line["loss_decreased"], (line["loss_first_epoch"], line["loss_last_epoch"])
+
+
+def test_convert_checkpoint_and_profiling_on_the_card(gen, tmp_path, capsys):
+    """``tools/convert_checkpoint.py`` with no device asked for (the card)
+    round-trips a seeded model's ``.pth``; ``utils/profiling``'s trace holds
+    the card's kernels and ``sync`` waits on a CUDA tensor."""
+    from cds_mvsnet_tpu_torch.config import ModelConfig
+    from cds_mvsnet_tpu_torch.models import build_model
+    from cds_mvsnet_tpu_torch.tools import convert_checkpoint
+    from cds_mvsnet_tpu_torch.utils.profiling import SectionTimer, device_trace, sync
+
+    model = build_model(ModelConfig(refine=False), seed=1, device="cuda")
+    torch.save({"state_dict": model.state_dict()}, tmp_path / "m.pth")
+    convert_checkpoint.main([str(tmp_path / "m.pth"), str(tmp_path / "m.npz")])
+    again = build_model(ModelConfig(refine=False), params=str(tmp_path / "m.npz"), device="cuda")
+    assert all(torch.equal(again.state_dict()[k], v) for k, v in model.state_dict().items())
+    src, ref = uniform(gen, (40, 64, 8)), uniform(gen, (8, 32, 64))
+    rt = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0, 1.0, 0, 0], device="cuda")
+    timer = SectionTimer()
+    with device_trace(str(tmp_path / "trace")):
+        with timer.section("warp", result=None):
+            out = K.warp_entropy(src, ref, torch.linspace(2.0, 9.0, 8, device="cuda"), rt)
+            sync({"out": list(out)})
+    (trace,) = (tmp_path / "trace").glob("*.pt.trace.json")
+    assert "warp_entropy_kernel" in trace.read_text()
+    assert timer.summary()["warp"]["n"] == 1
