@@ -54,6 +54,13 @@ with their names, ``ops/pallas/warp.py:1592-1600``, which has none of
 them); the FeatureNet stays as on the fp32 path whatever ``Routes.feature``
 names (the JAX package keeps fp32 features dense, ``_want_sparse``,
 ``feature_net_s2d.py:67``): K4 launches 0 times.
+
+Under ``torch.profiler`` the cascade records spans (``utils.profiling.span``;
+nothing without a session): ``cds.forward`` holds ``cds.inputs`` (epipoles,
+resize, stacking, cast), ``cds.feature`` (again on autograd's thread when the
+remat recompute runs), ``cds.stage<s>`` (hypotheses, the stage net, the exit;
+inside it ``cds.stage<s>.volume`` and ``cds.stage<s>.cost_reg``, once per batch
+element in eval) and ``cds.refine``.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from ..ops import kernels as K
 from ..ops.geometry import epipole_from_fundamental, fundamental_matrix
 from ..ops.resize import resize_linear, resize_nearest
 from ..ops.sampling import initial_depth_hypotheses, refined_depth_hypotheses
+from ..utils.profiling import span
 from .convert import load_into
 from .cost_reg import CostRegNet
 from .feature_net import FEATURE_OUT_CHANNELS, FeatureNet
@@ -172,13 +180,18 @@ class CDSMVSNet(nn.Module):
         return self._cascade(imgs, proj_matrices, depth_values, temperature, compute_dtype, warp=warp,
                              stats=stats, gt_depths=gt_depths, remat_features=remat_features)
 
+    def _feature_net(self, *args, **kwargs):
+        # the remat recompute runs this again, on autograd's thread
+        with span("cds.feature"):
+            return self.feature(*args, **kwargs)
+
     def _features(self, stacked, epis, temperature, ops, stats, remat_features, V, feature):
         if stats is None:
-            return self.feature(stacked, epis, temperature, branches=dict.fromkeys(feature, ops.dynconv))
+            return self._feature_net(stacked, epis, temperature, branches=dict.fromkeys(feature, ops.dynconv))
         # stack group kind·(V−1)+v is upstream call 2v+kind (ref_v, then src_v)
         bn = {"bn_groups": 2 * (V - 1), "bn_order": tuple(2 * v + kind for kind in (0, 1) for v in range(V - 1))}
         if not remat_features:
-            return self.feature(stacked, epis, temperature, stats=stats, **bn)
+            return self._feature_net(stacked, epis, temperature, stats=stats, **bn)
         # The recompute in the backward runs the FeatureNet again; its BN
         # records go to a collector of its own and are dropped, so the
         # running statistics move once.
@@ -186,7 +199,7 @@ class CDSMVSNet(nn.Module):
 
         def run(x, e):
             local = StatsCollector(stats.group)
-            out = self.feature(x, e, temperature, stats=local, **bn)
+            out = self._feature_net(x, e, temperature, stats=local, **bn)
             first.append(local)
             return out
 
@@ -196,73 +209,79 @@ class CDSMVSNet(nn.Module):
 
     def _cascade(self, imgs, proj_matrices, depth_values, temperature, compute_dtype, ops=PLAIN_OPS,
                  warp=None, stats=None, gt_depths=None, remat_features=False, routes=None, cost_dtype=None):
-        cfg = self.cfg
-        B, V, H, W, _ = imgs.shape
-        height, width = (H // 2, W // 2) if cfg.refine else (H, W)
-        depth_values = depth_values.float()
-        depth_min = depth_values[:, 0]
-        depth_max = depth_values[:, -1]
-        depth_interval = depth_values[:, 1] - depth_values[:, 0]
+        with span("cds.forward"):
+            cfg = self.cfg
+            B, V, H, W, _ = imgs.shape
+            height, width = (H // 2, W // 2) if cfg.refine else (H, W)
+            depth_values = depth_values.float()
+            depth_min = depth_values[:, 0]
+            depth_max = depth_values[:, -1]
+            depth_interval = depth_values[:, 1] - depth_values[:, 0]
 
-        cams3 = proj_matrices["stage3"].float()
-        ref_epi, src_epi = pairwise_epipoles(cams3[:, 0], cams3[:, 1:])
-        work = imgs if (height, width) == (H, W) else resize_nearest(imgs, (height, width), dims=(2, 3))
-        ref_rep = work[:, 0][None].expand(V - 1, B, height, width, 3)
-        srcs = work[:, 1:].transpose(0, 1)
-        stacked = torch.cat([ref_rep, srcs]).reshape(2 * (V - 1) * B, height, width, 3)
-        stacked = stacked.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
-        epis = torch.cat([ref_epi.transpose(0, 1), src_epi.transpose(0, 1)]).reshape(-1, 2)
-        feature = DEFAULT_FEATURE_ROUTE if routes is None or compute_dtype == torch.float32 else routes.feature
-        feats = self._features(stacked, epis, temperature, ops, stats, remat_features, V, feature)
+            with span("cds.inputs"):
+                cams3 = proj_matrices["stage3"].float()
+                ref_epi, src_epi = pairwise_epipoles(cams3[:, 0], cams3[:, 1:])
+                work = imgs if (height, width) == (H, W) else resize_nearest(imgs, (height, width), dims=(2, 3))
+                ref_rep = work[:, 0][None].expand(V - 1, B, height, width, 3)
+                srcs = work[:, 1:].transpose(0, 1)
+                stacked = torch.cat([ref_rep, srcs]).reshape(2 * (V - 1) * B, height, width, 3)
+                stacked = stacked.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
+                epis = torch.cat([ref_epi.transpose(0, 1), src_epi.transpose(0, 1)]).reshape(-1, 2)
+            feature = DEFAULT_FEATURE_ROUTE if routes is None or compute_dtype == torch.float32 else routes.feature
+            feats = self._features(stacked, epis, temperature, ops, stats, remat_features, V, feature)
 
-        outputs = {}
-        depth = None
-        for s in range(cfg.num_stages):
-            name = f"stage{s + 1}"
-            scale = int(cfg.stage_scales[s])
-            h_s, w_s = height // scale, width // scale
-            ndepth = cfg.ndepths[s]
-            per = [t.reshape(2, V - 1, B, *t.shape[1:]) for t in feats[name]]
-            features = [
-                {"ref": tuple(t[0, v] for t in per), "src": tuple(t[1, v] for t in per)}
-                for v in range(V - 1)
-            ]
-            if depth is None:
-                hyp = initial_depth_hypotheses(depth_values, ndepth)
+            outputs = {}
+            depth = None
+            for s in range(cfg.num_stages):
+                name = f"stage{s + 1}"
+                with span(f"cds.{name}"):
+                    scale = int(cfg.stage_scales[s])
+                    h_s, w_s = height // scale, width // scale
+                    ndepth = cfg.ndepths[s]
+                    per = [t.reshape(2, V - 1, B, *t.shape[1:]) for t in feats[name]]
+                    features = [
+                        {"ref": tuple(t[0, v] for t in per), "src": tuple(t[1, v] for t in per)}
+                        for v in range(V - 1)
+                    ]
+                    if depth is None:
+                        hyp = initial_depth_hypotheses(depth_values, ndepth)
+                    else:
+                        cur = depth.detach() if cfg.grad_method == "detach" else depth
+                        cur = resize_linear(cur[:, None], (height, width), dims=(2, 3))[:, 0]
+                        hyp = refined_depth_hypotheses(
+                            cur, ndepth,
+                            (cfg.depth_intervals_ratio[s] * depth_interval)[:, None, None],
+                            depth_min[:, None, None, None],
+                            depth_max[:, None, None, None],
+                            out_hw=(h_s, w_s),
+                        )
+                    cost_reg = self.cost_regularization if cfg.share_cr else self.cost_regularization[str(s)]
+                    vis_head = self.stage_net.vis[str(s)]
+                    cams = proj_matrices[name].float()
+                    if stats is None:
+                        route = (None, "pallas") if routes is None else (routes.warp.get(s + 1), routes.front)
+                        out = stage_net(vis_head, cost_reg, features, cams, hyp, ops, *route, cost_dtype=cost_dtype,
+                                        span_name=f"cds.{name}")
+                    else:
+                        gt = None if gt_depths is None else gt_depths[name].float()
+                        out = stage_net_train(vis_head, cost_reg, features, cams, hyp, warp, stats, gt,
+                                              span_name=f"cds.{name}")
+                        if gt is not None:
+                            out["feat_target"] = feat_target(hyp, gt, depth_interval * cfg.stage_scales[s],
+                                                             cfg.stage_scales[s])
+                    depth = out["depth"]
+                    outputs[name] = out
+
+            if cfg.refine:
+                with span("cds.refine"):
+                    scale = depth_interval[:, None, None]
+                    img = imgs[:, 0].permute(0, 3, 1, 2).to(compute_dtype)
+                    refined = self.refine_network(img, depth.detach() / scale, depth_min / depth_interval,
+                                                  depth_max / depth_interval, stats)
+                    outputs["refined_depth"] = refined * scale
             else:
-                cur = depth.detach() if cfg.grad_method == "detach" else depth
-                cur = resize_linear(cur[:, None], (height, width), dims=(2, 3))[:, 0]
-                hyp = refined_depth_hypotheses(
-                    cur, ndepth,
-                    (cfg.depth_intervals_ratio[s] * depth_interval)[:, None, None],
-                    depth_min[:, None, None, None],
-                    depth_max[:, None, None, None],
-                    out_hw=(h_s, w_s),
-                )
-            cost_reg = self.cost_regularization if cfg.share_cr else self.cost_regularization[str(s)]
-            vis_head = self.stage_net.vis[str(s)]
-            cams = proj_matrices[name].float()
-            if stats is None:
-                route = (None, "pallas") if routes is None else (routes.warp.get(s + 1), routes.front)
-                out = stage_net(vis_head, cost_reg, features, cams, hyp, ops, *route, cost_dtype=cost_dtype)
-            else:
-                gt = None if gt_depths is None else gt_depths[name].float()
-                out = stage_net_train(vis_head, cost_reg, features, cams, hyp, warp, stats, gt)
-                if gt is not None:
-                    out["feat_target"] = feat_target(hyp, gt, depth_interval * cfg.stage_scales[s],
-                                                     cfg.stage_scales[s])
-            depth = out["depth"]
-            outputs[name] = out
-
-        if cfg.refine:
-            scale = depth_interval[:, None, None]
-            img = imgs[:, 0].permute(0, 3, 1, 2).to(compute_dtype)
-            refined = self.refine_network(img, depth.detach() / scale, depth_min / depth_interval,
-                                          depth_max / depth_interval, stats)
-            outputs["refined_depth"] = refined * scale
-        else:
-            outputs["refined_depth"] = depth
-        return outputs
+                outputs["refined_depth"] = depth
+            return outputs
 
 
 def feat_target(hyp, gt, interval, scale: float) -> torch.Tensor:

@@ -45,6 +45,7 @@ from torch import nn
 from ..ops import kernels as K
 from ..ops.geometry import relative_warp_transform, sweep_coords
 from ..ops.sampling import confidence_regression, depth_regression, softmax_entropy
+from ..utils.profiling import span
 from .cost_reg import CostRegNet
 from .layers import ConvBnReLU2d, conv2d
 from .warp_routes import BATCHED_ROUTES, WARP_ROUTES, parse_route
@@ -200,7 +201,7 @@ def _batched_volume(vis_head, features, cams, hyp, b):
 
 
 def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, ops: Ops,
-              warp_route: str | None = None, front: str = "pallas", cost_dtype=None):
+              warp_route: str | None = None, front: str = "pallas", cost_dtype=None, span_name: str = "cds.stage"):
     """Run one stage.
 
     Args:
@@ -213,6 +214,8 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
       front: the cost-regularisation front (``CostRegNet.front``).
       cost_dtype: the dtype of the regularisation (the volume mean cast to
         it); None: the features' dtype.
+      span_name: the prefix of the per-element spans ``<span_name>.volume``
+        (the V−1 warps, vis heads and sums) and ``<span_name>.cost_reg``.
     Returns:
       ``{"depth", "photometric_confidence", "norm_curv"}``, each ``(B, h, w)``.
     """
@@ -221,15 +224,17 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
     depths, confs = [], []
     for b in range(B):
         hyp = depth_values[b].float().contiguous()
-        if warp_route in BATCHED_ROUTES and V > 2:
-            volume_sum, vis_sum = _batched_volume(vis_head, features, cams, hyp, b)
-        else:
-            volume_sum, vis_sum = _view_volume(vis_head, warp, features, cams, hyp, b)
+        with span(f"{span_name}.volume"):
+            if warp_route in BATCHED_ROUTES and V > 2:
+                volume_sum, vis_sum = _batched_volume(vis_head, features, cams, hyp, b)
+            else:
+                volume_sum, vis_sum = _view_volume(vis_head, warp, features, cams, hyp, b)
         volume_mean = volume_sum / (vis_sum + 1e-6)  # (C, D, h, w)
         if cost_dtype is not None:
             volume_mean = volume_mean.to(cost_dtype)
         tail = cost_tail(ops, volume_mean.dtype)
-        y = cost_reg(volume_mean, tail.conv0, front)
+        with span(f"{span_name}.cost_reg"):
+            y = cost_reg(volume_mean, tail.conv0, front)
         depth, conf = tail.exit(y, cost_reg.prob.weight.float().contiguous(), hyp)
         depths.append(depth)
         confs.append(conf)
@@ -242,7 +247,7 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
 
 
 def stage_net_train(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, warp, stats,
-                    gt_depth=None):
+                    gt_depth=None, span_name: str = "cds.stage"):
     """Run one stage in training.
 
     Args:
@@ -252,37 +257,42 @@ def stage_net_train(vis_head: VisHead, cost_reg: CostRegNet, features, cams, dep
         ``ops.kernels.fused_warp_train`` (K5) or ``warp_sim_plain``.
       stats: the ``layers.StatsCollector`` every BN records into.
       gt_depth: ``(B, h, w)`` ground truth, for the GT similarity plane.
+      span_name: the prefix of the spans ``<span_name>.volume`` (the loop
+        over views) and ``<span_name>.cost_reg`` (``train_logits``).
     Returns:
       ``{"depth", "photometric_confidence", "norm_curv"}``, each ``(B, h, w)``,
       and ``feat_distance (B, D(+1), h, w)``.
     """
     B, V = cams.shape[:2]
     volume_sum = vis_sum = fd_sum = gt_sum = 0.0
-    for v in range(1, V):
-        ref_feat, _, ref_nc = features[v - 1]["ref"]
-        src_feat = features[v - 1]["src"][0]
-        rot, trans = relative_warp_transform(cams[:, 0], cams[:, v])
-        rts = torch.cat([rot.reshape(B, 9), trans.reshape(B, 3)], 1).float()
-        prods, sims, gt_sims = [], [], []
-        for b in range(B):
-            src_b = src_feat[b].permute(1, 2, 0).contiguous()
-            ref_b = ref_feat[b].contiguous()
-            rt = rts[b].contiguous()
-            in_prod, sim = warp(src_b, ref_b, depth_values[b].float().contiguous(), rt)
-            prods.append(in_prod)
-            sims.append(sim)
+    with span(f"{span_name}.volume"):
+        for v in range(1, V):
+            ref_feat, _, ref_nc = features[v - 1]["ref"]
+            src_feat = features[v - 1]["src"][0]
+            rot, trans = relative_warp_transform(cams[:, 0], cams[:, v])
+            rts = torch.cat([rot.reshape(B, 9), trans.reshape(B, 3)], 1).float()
+            prods, sims, gt_sims = [], [], []
+            for b in range(B):
+                src_b = src_feat[b].permute(1, 2, 0).contiguous()
+                ref_b = ref_feat[b].contiguous()
+                rt = rts[b].contiguous()
+                in_prod, sim = warp(src_b, ref_b, depth_values[b].float().contiguous(), rt)
+                prods.append(in_prod)
+                sims.append(sim)
+                if gt_depth is not None:
+                    gt_sims.append(warp(src_b, ref_b, gt_depth[b][None].float().contiguous(), rt)[1])
+            sim = torch.stack(sims)  # (B, D, h, w) fp32
+            entropy = softmax_entropy(sim, dim=1)[:, 0]
+            vis = vis_head(torch.stack([entropy.to(ref_nc.dtype), ref_nc], 1), stats)[:, 0]  # (B, h, w)
+            volume_sum = volume_sum + torch.stack(prods) * vis[:, None, None]
+            vis_sum = vis_sum + vis
+            fd_sum = fd_sum + sim * vis[:, None]
             if gt_depth is not None:
-                gt_sims.append(warp(src_b, ref_b, gt_depth[b][None].float().contiguous(), rt)[1])
-        sim = torch.stack(sims)  # (B, D, h, w) fp32
-        entropy = softmax_entropy(sim, dim=1)[:, 0]
-        vis = vis_head(torch.stack([entropy.to(ref_nc.dtype), ref_nc], 1), stats)[:, 0]  # (B, h, w)
-        volume_sum = volume_sum + torch.stack(prods) * vis[:, None, None]
-        vis_sum = vis_sum + vis
-        fd_sum = fd_sum + sim * vis[:, None]
-        if gt_depth is not None:
-            gt_sum = gt_sum + torch.stack(gt_sims) * vis[:, None]
+                gt_sum = gt_sum + torch.stack(gt_sims) * vis[:, None]
     denom = vis_sum[:, None] + 1e-6
-    cost = cost_reg.train_logits(volume_sum / denom[:, None], stats)  # (B, D, h, w)
+    volume_mean = volume_sum / denom[:, None]
+    with span(f"{span_name}.cost_reg"):
+        cost = cost_reg.train_logits(volume_mean, stats)  # (B, D, h, w)
     prob = torch.softmax(cost.float(), dim=1)
     depth = depth_regression(prob, depth_values.float())
     with torch.no_grad():

@@ -21,6 +21,10 @@ Counterpart of ``cds_mvsnet_tpu/training/train_step.py::make_train_step``.
   deterministic algorithms (``models.cds_mvsnet.strict_fp32``), K5 sums
   ``d_src`` in fixed point, and the plain warp's and the resizes' gathers
   differentiate in a fixed order (``ops/index.py``).
+- Under ``torch.profiler`` a step records the span ``cds.step`` and in it
+  ``cds.step.forward``, ``.loss``, ``.backward`` (the gradient all-reduce
+  stays outside it), ``.optimizer`` and ``.bn_apply``
+  (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.distributed as dist
 from ..config import TrainConfig
 from ..models.cds_mvsnet import CDSMVSNet, strict_fp32
 from ..models.layers import StatsCollector
+from ..utils.profiling import span
 from .loss import final_loss
 
 __all__ = ["TrainStep", "learning_rate", "temperature_schedule"]
@@ -83,18 +88,21 @@ class TrainStep:
         gradients and the losses are the global batch's."""
         stats = StatsCollector(self.group)
         dv = batch["depth_values"]
-        outputs = self.model.forward_train(
-            batch["imgs"], batch["proj_matrices"], dv, batch["depth"], stats, temperature=temperature,
-            compute_dtype=self.compute_dtype, kernels=self.kernels, remat_features=self.cfg.remat_features,
-        )
-        loss, depth_loss = final_loss(outputs, batch["depth"], batch["mask"], self.cfg.dlossw, dv[:, 1] - dv[:, 0],
-                                      group=self.group)
-        for p in self.params:
-            p.grad = None
-        loss.backward()
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with span("cds.step.forward"):
+            outputs = self.model.forward_train(
+                batch["imgs"], batch["proj_matrices"], dv, batch["depth"], stats, temperature=temperature,
+                compute_dtype=self.compute_dtype, kernels=self.kernels, remat_features=self.cfg.remat_features,
+            )
+        with span("cds.step.loss"):
+            loss, depth_loss = final_loss(outputs, batch["depth"], batch["mask"], self.cfg.dlossw,
+                                          dv[:, 1] - dv[:, 0], group=self.group)
+        with span("cds.step.backward"):
+            for p in self.params:
+                p.grad = None
+            loss.backward()
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         losses = torch.stack([loss.detach(), depth_loss.detach()])
         if self.group is not None:
             flat = torch.cat([p.grad.reshape(-1) for p in self.params])
@@ -105,9 +113,12 @@ class TrainStep:
         return {"loss": losses[0], "depth_loss": losses[1]}, stats
 
     def __call__(self, batch: dict, temperature: float, epoch: int = 1) -> dict:
-        metrics, stats = self.gradients(batch, temperature)
-        for group in self.optimizer.param_groups:
-            group["lr"] = learning_rate(self.cfg, epoch)
-        self.optimizer.step()
-        stats.apply()
+        with span("cds.step"):
+            metrics, stats = self.gradients(batch, temperature)
+            for group in self.optimizer.param_groups:
+                group["lr"] = learning_rate(self.cfg, epoch)
+            with span("cds.step.optimizer"):
+                self.optimizer.step()
+            with span("cds.step.bn_apply"):
+                stats.apply()
         return metrics

@@ -1446,8 +1446,10 @@ def device_profile(torch, run, top: int = 15) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the port's cds.* spans come back as CUDA rows too (user annotations): ranges, not device work
     rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key) for evt in prof.key_averages()
-                   if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0), reverse=True)
+                   if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+                   and not evt.is_user_annotation), reverse=True)
     device_ms = sum(r[0] for r in rows)
     groups = {"hand_written": 0.0, "convolution": 0.0, "elementwise": 0.0, "other": 0.0}
     hand_written_calls = 0

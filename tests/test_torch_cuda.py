@@ -15,6 +15,8 @@ round once to bf16, so they agree to one bf16 ulp of the result.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1565,11 +1567,11 @@ def test_train_convergence_tool_on_the_card(gen, monkeypatch, capsys):
 def test_convert_checkpoint_and_profiling_on_the_card(gen, tmp_path, capsys):
     """``tools/convert_checkpoint.py`` with no device asked for (the card)
     round-trips a seeded model's ``.pth``; ``utils/profiling``'s trace holds
-    the card's kernels and ``sync`` waits on a CUDA tensor."""
+    a ``cds.*`` span and the card's kernel launched inside it."""
     from cds_mvsnet_tpu_torch.config import ModelConfig
     from cds_mvsnet_tpu_torch.models import build_model
     from cds_mvsnet_tpu_torch.tools import convert_checkpoint
-    from cds_mvsnet_tpu_torch.utils.profiling import SectionTimer, device_trace, sync
+    from cds_mvsnet_tpu_torch.utils.profiling import device_trace, span
 
     model = build_model(ModelConfig(refine=False), seed=1, device="cuda")
     torch.save({"state_dict": model.state_dict()}, tmp_path / "m.pth")
@@ -1578,11 +1580,18 @@ def test_convert_checkpoint_and_profiling_on_the_card(gen, tmp_path, capsys):
     assert all(torch.equal(again.state_dict()[k], v) for k, v in model.state_dict().items())
     src, ref = uniform(gen, (40, 64, 8)), uniform(gen, (8, 32, 64))
     rt = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0, 1.0, 0, 0], device="cuda")
-    timer = SectionTimer()
     with device_trace(str(tmp_path / "trace")):
-        with timer.section("warp", result=None):
-            out = K.warp_entropy(src, ref, torch.linspace(2.0, 9.0, 8, device="cuda"), rt)
-            sync({"out": list(out)})
+        with span("cds.test"):
+            K.warp_entropy(src, ref, torch.linspace(2.0, 9.0, 8, device="cuda"), rt)
+        torch.cuda.synchronize()
     (trace,) = (tmp_path / "trace").glob("*.pt.trace.json")
-    assert "warp_entropy_kernel" in trace.read_text()
-    assert timer.summary()["warp"]["n"] == 1
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    # the range on the host (Kineto also mirrors it on the card's timeline as a gpu_user_annotation)
+    (outer,) = [e for e in events if e["name"] == "cds.test" and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "warp_entropy_kernel" in e["name"]]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    assert kernels
+    for k in kernels:  # launched inside the span, on its thread
+        at = launches[k["args"]["correlation"]]
+        assert at["tid"] == outer["tid"] and outer["ts"] <= at["ts"] <= outer["ts"] + outer["dur"]

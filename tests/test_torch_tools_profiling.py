@@ -1,67 +1,32 @@
-"""``cds_mvsnet_tpu_torch/utils/{profiling,logging}.py`` against the JAX
-package's modules: the section timer's summary under the same clock, the
-same logging handlers, and a trace written on the CPU."""
+"""``cds_mvsnet_tpu_torch/utils/{profiling,logging}.py``: a trace written
+on the CPU, and the same logging handlers as the JAX package's module."""
 
 from __future__ import annotations
 
+import json
 import logging
 import logging.handlers
-import time
 
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 from cds_mvsnet_tpu.utils import logging as jax_logging
-from cds_mvsnet_tpu.utils import profiling as jax_profiling
 from cds_mvsnet_tpu_torch.utils import logging as port_logging
 from cds_mvsnet_tpu_torch.utils import profiling as port_profiling
 
 
-def run_sections(timer, result):
-    """The same sequence of sections, one of them waiting on a result."""
-    for name in ("load", "infer", "load", "fuse", "infer", "infer"):
-        with timer.section(name, result=result if name == "infer" else None):
-            pass
-
-
-def test_section_timer_summary_matches_jax(monkeypatch):
-    """Under one patched ``time.perf_counter`` (each read 0.25 s, then 0.5 s,
-    ... after the last) both timers give the same summary."""
-    def clock():
-        ticks = iter(np.cumsum(np.arange(1, 100) * 0.25))
-        return lambda: float(next(ticks))
-
-    result = jnp.ones((2, 3))
-    jax_profiling.sync(result)  # compiled before the clock is patched
-    monkeypatch.setattr(time, "perf_counter", clock())
-    jax_timer = jax_profiling.SectionTimer()
-    run_sections(jax_timer, result)
-    monkeypatch.setattr(time, "perf_counter", clock())
-    port_timer = port_profiling.SectionTimer()
-    run_sections(port_timer, {"depth": [torch.ones(2, 3)]})
-    want, got = jax_timer.summary(), port_timer.summary()
-    assert list(got) == list(want) == ["load", "infer", "fuse"]
-    assert got == want
-    assert got["infer"]["n"] == 3
-
-
-def test_sync_finds_no_card_tensor_on_the_cpu():
-    """``sync`` walks dicts, lists and tuples and does nothing where no
-    tensor lies on the card."""
-    assert port_profiling._first_cuda_tensor({"a": [torch.ones(1), (torch.zeros(2),)], "b": 3}) is None
-    port_profiling.sync({"a": [torch.ones(1)]})
-    port_profiling.sync(None)
-
-
 def test_device_trace_writes_a_trace(tmp_path):
-    """A trace of the CPU work inside the block, as a ``*.pt.trace.json``."""
+    """A trace of the CPU work inside the block, as a ``*.pt.trace.json``,
+    in which a span holds the operators run inside it."""
     with port_profiling.device_trace(str(tmp_path)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with port_profiling.span("cds.test"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     traces = list(tmp_path.glob("*.pt.trace.json"))
     assert len(traces) == 1
-    assert "aten::mm" in traces[0].read_text()
+    events = [e for e in json.loads(traces[0].read_text())["traceEvents"] if e.get("ph") == "X"]
+    (outer,) = [e for e in events if e["name"] == "cds.test" and e.get("cat") == "user_annotation"]
+    mm = [e for e in events if e["name"] == "aten::mm"]
+    assert mm and all(outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] for e in mm)
 
 
 @pytest.fixture
