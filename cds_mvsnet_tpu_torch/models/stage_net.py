@@ -9,8 +9,11 @@ a weight in (0, 1), and ``volume_sum += in_prod · vis``. Then ``volume_mean
 = volume_sum / (vis_sum + 1e-6)`` goes through the cost-regularisation UNet
 and the softmax/regression tail.
 
-- :func:`stage_net`, eval: per batch element, through one of three
-  :class:`Ops`: ``KERNEL_OPS`` (bf16: K1 warps, K2 runs the UNet's conv0 and
+- :func:`stage_net`, eval: each stage's volume over the whole batch, with
+  one pose transform and one vis head call over its B·(V−1) (element,
+  source view) pairs and the warp per pair; then the regularisation and the
+  exit per batch element. It runs through one of three :class:`Ops`:
+  ``KERNEL_OPS`` (bf16: K1 warps, K2 runs the UNet's conv0 and
   K3, ``ops/kernels/regress.py``, the exit), ``FP32_OPS`` (fp32: K9 gathers,
   :func:`warp_entropy_gather`, and K2 runs conv0) or ``PLAIN_OPS``.
   ``cost_dtype`` (the JAX package's ``cost_dtype``,
@@ -23,8 +26,8 @@ and the softmax/regression tail.
   route and a cost-reg front (``models/warp_routes.py``, the JAX package's
   ``_stage_net_pallas`` dispatch at :332-509) put other kernels in the
   warp's and conv0's place: :func:`route_warp`, and for ``v6sb``/``v6sball``
-  with V > 2 one K8 launch over all source views, the vis head over all of
-  them and ``volume_sum = Σ_v in_prod·vis`` in one sum (:339-398).
+  with V > 2 one K8 launch per element over all its source views and
+  ``volume_sum = Σ_v in_prod·vis`` in one sum (:339-398).
 - :func:`stage_net_train`, train (``train=True`` there): the warp is K5
   (``ops/kernels/warp_vjp.py``) or its plain version, launched per batch
   element and source view, once over the hypotheses and once at the GT depth
@@ -151,6 +154,15 @@ class VisHead(nn.Sequential):
         )
 
     def forward(self, x, stats=None):
+        if stats is None and x.device.type == "cpu" and x.shape[0] > 1:
+            # PyTorch's CPU conv picks its algorithm by batch size (oneDNN
+            # above 1, its own for a small input at 1), so at eval, where no
+            # sample's weight depends on another, take them one at a time:
+            # a pair's visibility then does not depend on the pairs beside it.
+            return torch.cat([self._head(x[i : i + 1]) for i in range(x.shape[0])])
+        return self._head(x, stats)
+
+    def _head(self, x, stats=None):
         for i in range(3):
             x = self[i](x, stats)
         return torch.sigmoid(conv2d(x, self[3].weight, self[3].bias))
@@ -162,47 +174,78 @@ class StageNet(nn.Module):
         self.vis = nn.ModuleDict({str(s): VisHead() for s in range(num_stages)})
 
 
-def _view_volume(vis_head, warp, features, cams, hyp, b):
-    """``(volume_sum, vis_sum)`` of batch element ``b``, view by view:
-    ``volume_sum += in_prod·vis``."""
-    volume_sum = vis_sum = None
-    for v in range(1, cams.shape[1]):
-        ref_feat, _, ref_nc = features[v - 1]["ref"]
-        src_feat = features[v - 1]["src"][0]
-        rot, trans = relative_warp_transform(cams[b : b + 1, 0], cams[b : b + 1, v])
-        rt = torch.cat([rot.reshape(9), trans.reshape(3)]).float().contiguous()
-        in_prod, entropy = warp(src_feat[b].permute(1, 2, 0).contiguous(), ref_feat[b].contiguous(), hyp, rt)
-        x = torch.stack([entropy.to(ref_nc.dtype), ref_nc[b]])[None]
-        vis = vis_head(x)[0, 0]  # (h, w)
-        term = in_prod * vis
-        volume_sum = term if volume_sum is None else volume_sum + term
-        vis_sum = vis if vis_sum is None else vis_sum + vis
+def _pair_transforms(cams):
+    """``rt (B, V−1, 12)`` fp32 of every (element, source view) pair from one
+    :func:`relative_warp_transform` call: a row holds the pair's rotation,
+    row-major, then its translation."""
+    B, V = cams.shape[:2]
+    cam = cams.shape[2:]
+    ref = cams[:, :1].expand(B, V - 1, *cam).reshape(-1, *cam)
+    rot, trans = relative_warp_transform(ref, cams[:, 1:].reshape(-1, *cam))
+    return torch.cat([rot.reshape(B, V - 1, 9), trans.reshape(B, V - 1, 3)], -1).float()
+
+
+def _visibility(vis_head, entropy, features):
+    """One vis head call over every pair: ``entropy (B, V−1, h, w)`` and each
+    view's ``ref_nc`` -> ``vis (B, V−1, h, w)``. Eval BN normalises with its
+    running statistics, so a pair's weight does not depend on the others."""
+    B, n, h, w = entropy.shape
+    ref_nc = torch.stack([f["ref"][2] for f in features], 1)
+    x = torch.stack([entropy.to(ref_nc.dtype), ref_nc], 2).view(B * n, 2, h, w)
+    return vis_head(x).view(B, n, h, w)
+
+
+def _view_volume(vis_head, warp, features, cams, hyps):
+    """``(volume_sum (B, C, D, h, w), vis_sum (B, h, w))``: the warp per
+    (element, source view) pair, then ``volume_sum[b] += in_prod·vis`` in view
+    order, a product rounded and then a sum rounded, as one element at a time
+    would."""
+    B, V = cams.shape[:2]
+    rts = _pair_transforms(cams)
+    srcs = [f["src"][0].permute(0, 2, 3, 1).contiguous() for f in features]  # (B, H, W, C)
+    prods, entropies = [], []
+    for b in range(B):
+        for v, f in enumerate(features):
+            in_prod, entropy = warp(srcs[v][b], f["ref"][0][b].contiguous(), hyps[b], rts[b, v])
+            prods.append(in_prod)
+            entropies.append(entropy)
+    vis = _visibility(vis_head, torch.stack(entropies).view(B, V - 1, *entropies[0].shape), features)
+    volume_sum = prods[0].new_empty((B, *prods[0].shape))
+    for i, in_prod in enumerate(prods):
+        b, v = divmod(i, V - 1)
+        if v == 0:
+            torch.mul(in_prod, vis[b, v], out=volume_sum[b])
+        else:
+            volume_sum[b] += in_prod * vis[b, v]
+    vis_sum = vis[:, 0]
+    for v in range(1, V - 1):
+        vis_sum = vis_sum + vis[:, v]
     return volume_sum, vis_sum
 
 
-def _batched_volume(vis_head, features, cams, hyp, b):
-    """``(volume_sum, vis_sum)`` of batch element ``b`` from one K8 launch over
-    all V−1 source views (routes ``v6sb``/``v6sball``)."""
-    V = cams.shape[1]
-    srcs, refs, pxs, pys = [], [], [], []
-    for v in range(1, V):
-        ref = features[v - 1]["ref"][0][b].contiguous()
-        rot, trans = relative_warp_transform(cams[b : b + 1, 0], cams[b : b + 1, v])
-        px, py = stage_coords(ref, hyp, torch.cat([rot.reshape(9), trans.reshape(3)]).float())
-        srcs.append(features[v - 1]["src"][0][b].permute(1, 2, 0))
-        refs.append(ref)
-        pxs.append(px)
-        pys.append(py)
-    in_prod, sim = K.warp_sim_coords_batched(*(torch.stack(t).contiguous() for t in (srcs, refs, pxs, pys)))
-    entropy = softmax_entropy(sim, dim=1)[:, 0]  # (V-1, h, w)
-    ref_nc = torch.stack([features[v - 1]["ref"][2][b] for v in range(1, V)])
-    vis = vis_head(torch.stack([entropy.to(ref_nc.dtype), ref_nc], 1))[:, 0]  # (V-1, h, w)
-    return (in_prod * vis[:, None, None]).sum(0), vis.sum(0)
+def _batched_volume(vis_head, features, cams, hyps):
+    """``(volume_sum, vis_sum)`` as :func:`_view_volume`, from one K8 launch an
+    element over all its V−1 source views (routes ``v6sb``/``v6sball``)."""
+    B, V = cams.shape[:2]
+    rts = _pair_transforms(cams)
+    prods, entropies = [], []
+    for b in range(B):
+        refs = [f["ref"][0][b] for f in features]
+        pxs, pys = zip(*(stage_coords(ref, hyps[b], rts[b, v]) for v, ref in enumerate(refs)))
+        srcs = [f["src"][0][b].permute(1, 2, 0) for f in features]
+        in_prod, sim = K.warp_sim_coords_batched(*(torch.stack(t).contiguous() for t in (srcs, refs, pxs, pys)))
+        prods.append(in_prod)
+        entropies.append(softmax_entropy(sim, dim=1)[:, 0])  # (V-1, h, w)
+    vis = _visibility(vis_head, torch.stack(entropies), features)
+    volume_sum = torch.stack([(in_prod * vis[b][:, None, None]).sum(0) for b, in_prod in enumerate(prods)])
+    return volume_sum, vis.sum(1)
 
 
+@torch.no_grad()
 def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_values, ops: Ops,
               warp_route: str | None = None, front: str = "pallas", cost_dtype=None, span_name: str = "cds.stage"):
-    """Run one stage.
+    """Run one stage in eval, without autograd (the volume sum is written in
+    place, slice by slice).
 
     Args:
       features: per source view v, ``{"ref": (feat, nc_sum, nc), "src": (...)}``
@@ -214,28 +257,28 @@ def stage_net(vis_head: VisHead, cost_reg: CostRegNet, features, cams, depth_val
       front: the cost-regularisation front (``CostRegNet.front``).
       cost_dtype: the dtype of the regularisation (the volume mean cast to
         it); None: the features' dtype.
-      span_name: the prefix of the per-element spans ``<span_name>.volume``
-        (the V−1 warps, vis heads and sums) and ``<span_name>.cost_reg``.
+      span_name: the prefix of the spans ``<span_name>.volume`` (one a stage:
+        the pose transforms, the warps, the vis head call and the sums) and
+        ``<span_name>.cost_reg`` (one per batch element).
     Returns:
       ``{"depth", "photometric_confidence", "norm_curv"}``, each ``(B, h, w)``.
     """
     B, V = cams.shape[:2]
-    warp = route_warp(warp_route, ops)
+    hyps = depth_values.float().contiguous()
+    with span(f"{span_name}.volume"):
+        if warp_route in BATCHED_ROUTES and V > 2:
+            volume_sum, vis_sum = _batched_volume(vis_head, features, cams, hyps)
+        else:
+            volume_sum, vis_sum = _view_volume(vis_head, route_warp(warp_route, ops), features, cams, hyps)
+    volume_mean = volume_sum / (vis_sum + 1e-6)[:, None, None]  # (B, C, D, h, w)
+    if cost_dtype is not None:
+        volume_mean = volume_mean.to(cost_dtype)
+    tail = cost_tail(ops, volume_mean.dtype)
     depths, confs = [], []
     for b in range(B):
-        hyp = depth_values[b].float().contiguous()
-        with span(f"{span_name}.volume"):
-            if warp_route in BATCHED_ROUTES and V > 2:
-                volume_sum, vis_sum = _batched_volume(vis_head, features, cams, hyp, b)
-            else:
-                volume_sum, vis_sum = _view_volume(vis_head, warp, features, cams, hyp, b)
-        volume_mean = volume_sum / (vis_sum + 1e-6)  # (C, D, h, w)
-        if cost_dtype is not None:
-            volume_mean = volume_mean.to(cost_dtype)
-        tail = cost_tail(ops, volume_mean.dtype)
         with span(f"{span_name}.cost_reg"):
-            y = cost_reg(volume_mean, tail.conv0, front)
-        depth, conf = tail.exit(y, cost_reg.prob.weight.float().contiguous(), hyp)
+            y = cost_reg(volume_mean[b], tail.conv0, front)
+        depth, conf = tail.exit(y, cost_reg.prob.weight.float().contiguous(), hyps[b])
         depths.append(depth)
         confs.append(conf)
     nc_sum = sum((f["ref"][1] + f["src"][1]) / 2 for f in features)

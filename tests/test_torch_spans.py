@@ -112,14 +112,14 @@ def test_profiling_holds_span_and_device_trace_only():
 def test_eval_forward_records_the_span_tree(batch, tmp_path, compute_dtype, kernels):
     """One eval forward (B = 2, V = 3, refinement): one ``cds.forward``
     holding the inputs, the FeatureNet, the three stages and the
-    refinement; in each stage a volume and a cost-reg span per batch
-    element."""
+    refinement; in each stage one volume span (the volume is built over the
+    whole batch) and a cost-reg span per batch element."""
     model = build_model(ModelConfig(refine=True), seed=0, device="cpu")
     ranges = recorded(lambda: model(batch["imgs"], batch["proj_matrices"], batch["depth_values"],
                                     compute_dtype=compute_dtype, kernels=kernels), tmp_path)
     B = SIZE["B"]
     want = {"cds.forward": 1, "cds.inputs": 1, "cds.feature": 1, "cds.refine": 1,
-            **{s: 1 for s in STAGES}, **{f"{s}.volume": B for s in STAGES}, **{f"{s}.cost_reg": B for s in STAGES}}
+            **{s: 1 for s in STAGES}, **{f"{s}.volume": 1 for s in STAGES}, **{f"{s}.cost_reg": B for s in STAGES}}
     assert Counter(r[0] for r in ranges) == want
     assert_tree(ranges, EVAL_TREE)
     order = [r[0] for r in ranges if r[0].count(".") == 1]

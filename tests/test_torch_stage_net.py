@@ -14,9 +14,12 @@ from cds_mvsnet_tpu.models.stage_net import stage_net as jax_stage_net
 from cds_mvsnet_tpu.ops.geometry import homography_warp, relative_warp_transform
 from cds_mvsnet_tpu.ops.pallas.warp import warp_pallas_v8
 from cds_mvsnet_tpu.ops.sampling import softmax_entropy
+from cds_mvsnet_tpu_torch.config import ModelConfig
+from cds_mvsnet_tpu_torch.models import Routes, build_model, to_tensors
 from cds_mvsnet_tpu_torch.models.cost_reg import CostRegNet
-from cds_mvsnet_tpu_torch.models.stage_net import PLAIN_OPS, VisHead, stage_net
+from cds_mvsnet_tpu_torch.models.stage_net import KERNEL_OPS, PLAIN_OPS, VisHead, stage_net
 from cds_mvsnet_tpu_torch.ops.kernels import warp_entropy, warp_entropy_plain
+from cds_mvsnet_tpu_torch.utils.synthetic import synthetic_batch
 from test_torch_ops import N, T, jax_highest, load_module, numpy_params, random_cams
 
 torch.set_num_threads(2)
@@ -68,6 +71,62 @@ def test_stage_net_matches_jax_xla_form(stage_idx, C, per_pixel):
     np.testing.assert_allclose(N(got["depth"]), N(want["depth"]), rtol=0, atol=2e-2)
     np.testing.assert_allclose(N(got["photometric_confidence"]), N(want["photometric_confidence"]), atol=1e-4)
     np.testing.assert_allclose(N(got["norm_curv"]), N(want["norm_curv"]), atol=1e-6)
+
+
+@pytest.mark.parametrize("stage_idx,C,per_pixel,route", [(0, 32, False, None), (2, 8, True, None),
+                                                        (2, 8, False, "v6sb")])
+def test_stage_net_batch_equals_each_element_alone(stage_idx, C, per_pixel, route):
+    """The stage at B = 3, V = 4, whose volume is built over the whole batch
+    (one pose transform and one vis head call over the nine pairs), against
+    the same stage run on each element alone: plain fp32 at a per-plane and a
+    per-pixel stage, and bf16 under ``v6sb`` (one K8 launch an element)."""
+    rng = np.random.default_rng(10 + stage_idx)
+    B, V, D, h, w = 3, 4, 8, 16, 24
+    vis_p = numpy_params(init_vis_heads, 3, seed=1)
+    cr_p = numpy_params(init_cost_reg_net, C, 8, seed=2)
+    feats = _features(rng, B, V, C, h, w)
+    cams = T(_cams(rng, B, V, h, w))
+    if per_pixel:
+        dv = (600 + 40 * rng.standard_normal((B, 1, h, w)) + 12.0 * np.arange(D)[None, :, None, None])
+    else:
+        dv = np.tile(np.linspace(425, 905, D), (B, 1))
+    dv = T(dv.astype(np.float32))
+    vis = VisHead()
+    load_module(vis, vis_p[str(stage_idx)], f"stage_net.vis.{stage_idx}")
+    cr = CostRegNet(C, 8)
+    load_module(cr, cr_p, "cost_regularization.0")
+    dtype, ops = (torch.float32, PLAIN_OPS) if route is None else (torch.bfloat16, KERNEL_OPS)
+    tfeats = [
+        {k: (T(f[0]).permute(0, 3, 1, 2).contiguous().to(dtype), T(f[1]).to(dtype), T(f[2]).to(dtype))
+         for k, f in pair.items()}
+        for pair in feats
+    ]
+    with torch.no_grad():
+        got = stage_net(vis, cr, tfeats, cams, dv, ops, route)
+        for b in range(B):
+            one = [{k: tuple(t[b : b + 1] for t in f) for k, f in pair.items()} for pair in tfeats]
+            want = stage_net(vis, cr, one, cams[b : b + 1], dv[b : b + 1], ops, route)
+            np.testing.assert_allclose(N(got["depth"][b]), N(want["depth"][0]), rtol=0, atol=1e-5)
+            np.testing.assert_allclose(N(got["photometric_confidence"][b]),
+                                       N(want["photometric_confidence"][0]), rtol=0, atol=1e-6)
+            np.testing.assert_allclose(N(got["norm_curv"][b]), N(want["norm_curv"][0]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,V,routes", [(1, 3, None), (3, 4, None), (3, 4, Routes({2: "v6sb"}))])
+def test_vis_head_runs_once_a_stage(B, V, routes):
+    """An eval forward calls each stage's vis head once, on all B·(V−1)
+    (element, source view) pairs: ``(B·(V−1), 2, h, w)``."""
+    cfg = ModelConfig()
+    model = build_model(cfg, seed=0, device="cpu")
+    batch = to_tensors(synthetic_batch(B=B, V=V, H=64, W=64, D=48, seed=1), "cpu")
+    calls = {s: [] for s in model.stage_net.vis}
+    for s, head in model.stage_net.vis.items():
+        head.register_forward_hook(lambda m, args, out, s=s: calls[s].append(tuple(args[0].shape)))
+    dtype = torch.float32 if routes is None else torch.bfloat16
+    out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"], compute_dtype=dtype, kernels=True,
+                routes=routes)
+    assert calls == {str(s): [(B * (V - 1), 2, *out[f"stage{s + 1}"]["depth"].shape[1:])]
+                     for s in range(cfg.num_stages)}
 
 
 def _warp_inputs(rng, C, D, H, W):
