@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import upsample2x_nearest
+from ..utils.profiling import span
 from .dynamic_conv import DynamicConv
 from .layers import conv2d, instance_norm, leaky_relu
 
@@ -112,25 +113,33 @@ class FeatureNet(nn.Module):
         function that runs that conv's branches in one call (K4's wrapper
         or its plain version); a layer not named runs one conv per branch.
         ``stats`` trains every attention BN, with statistics per group of
-        ``N / bn_groups`` images (``layers.BatchNorm``).
+        ``N / bn_groups`` images (``layers.BatchNorm``). Under
+        ``torch.profiler`` each block's call is the span
+        ``cds.feature.<block>`` (``utils.profiling.span``).
         """
         route = (branches or {}).get
         bn = {"stats": stats, "groups": bn_groups, "order": bn_order}
 
         def dyn(name, x, epi):
-            return getattr(self, name)(x, epi, temperature, route(name), **bn)
+            with span(f"cds.feature.{name}"):
+                return getattr(self, name)(x, epi, temperature, route(name), **bn)
+
+        def plain(name, x):
+            with span(f"cds.feature.{name}"):
+                return getattr(self, name)(x, route(name))
 
         def head(name, x, epi):
-            out, nc = getattr(self, name)(x, epi, temperature, route(name), **bn)
+            with span(f"cds.feature.{name}"):
+                out, nc = getattr(self, name)(x, epi, temperature, route(name), **bn)
             return torch.tanh(instance_norm(out)), nc
 
         conv00, nc00 = dyn("conv00", x, epipole)
         conv01, nc01 = dyn("conv01", conv00, epipole)
         epi0 = epipole / 2
-        conv10, nc10 = dyn("conv10", self.downsample1(conv01, route("downsample1")), epi0)
+        conv10, nc10 = dyn("conv10", plain("downsample1", conv01), epi0)
         conv11, nc11 = dyn("conv11", conv10, epi0)
         epi1 = epipole / 4
-        conv20, nc20 = dyn("conv20", self.downsample2(conv11, route("downsample2")), epi1)
+        conv20, nc20 = dyn("conv20", plain("downsample2", conv11), epi1)
         conv21, nc21 = dyn("conv21", conv20, epi1)
 
         outputs = {}
@@ -138,11 +147,11 @@ class FeatureNet(nn.Module):
         out, nc22 = head("out1", intra, epi1)
         outputs["stage1"] = (out, (nc20**2 + nc21**2 + nc22**2) / 3, nc22.abs())
 
-        intra = self.inner1(torch.cat([upsample2x_nearest(intra), conv11], 1), route("inner1"))
+        intra = plain("inner1", torch.cat([upsample2x_nearest(intra), conv11], 1))
         out, nc12 = head("out2", intra, epi0)
         outputs["stage2"] = (out, (nc10**2 + nc11**2 + nc12**2) / 3, nc12.abs())
 
-        intra = self.inner2(torch.cat([upsample2x_nearest(out), conv01], 1), route("inner2"))
+        intra = plain("inner2", torch.cat([upsample2x_nearest(out), conv01], 1))
         out, nc02 = head("out3", intra, epipole)
         outputs["stage3"] = (out, (nc00**2 + nc01**2 + nc02**2) / 3, nc02.abs())
         return outputs

@@ -29,6 +29,10 @@ STAGES = ("cds.stage1", "cds.stage2", "cds.stage3")
 EVAL_TREE = {"cds.inputs": "cds.forward", "cds.feature": "cds.forward", "cds.refine": "cds.forward",
              **{s: "cds.forward" for s in STAGES}, **{f"{s}.volume": s for s in STAGES},
              **{f"{s}.cost_reg": s for s in STAGES}}
+# the FeatureNet's blocks, in call order (``FeatureNet.__init__``'s names)
+BLOCKS = tuple(f"cds.feature.{b}" for b in ("conv00", "conv01", "downsample1", "conv10", "conv11", "downsample2",
+                                            "conv20", "conv21", "out1", "inner1", "out2", "inner2", "out3"))
+EVAL_TREE.update(dict.fromkeys(BLOCKS, "cds.feature"))
 PHASES = ("cds.step.forward", "cds.step.loss", "cds.step.backward", "cds.step.optimizer", "cds.step.bn_apply")
 
 
@@ -112,16 +116,19 @@ def test_profiling_holds_span_and_device_trace_only():
 def test_eval_forward_records_the_span_tree(batch, tmp_path, compute_dtype, kernels):
     """One eval forward (B = 2, V = 3, refinement): one ``cds.forward``
     holding the inputs, the FeatureNet, the three stages and the
-    refinement; in each stage one volume span (the volume is built over the
-    whole batch) and a cost-reg span per batch element."""
+    refinement; in the FeatureNet one span a block, in call order; in each
+    stage one volume span (the volume is built over the whole batch) and a
+    cost-reg span per batch element."""
     model = build_model(ModelConfig(refine=True), seed=0, device="cpu")
     ranges = recorded(lambda: model(batch["imgs"], batch["proj_matrices"], batch["depth_values"],
                                     compute_dtype=compute_dtype, kernels=kernels), tmp_path)
     B = SIZE["B"]
     want = {"cds.forward": 1, "cds.inputs": 1, "cds.feature": 1, "cds.refine": 1,
-            **{s: 1 for s in STAGES}, **{f"{s}.volume": 1 for s in STAGES}, **{f"{s}.cost_reg": B for s in STAGES}}
+            **{s: 1 for s in STAGES}, **{f"{s}.volume": 1 for s in STAGES}, **{f"{s}.cost_reg": B for s in STAGES},
+            **dict.fromkeys(BLOCKS, 1)}
     assert Counter(r[0] for r in ranges) == want
     assert_tree(ranges, EVAL_TREE)
+    assert [r[0] for r in ranges if r[0] in BLOCKS] == list(BLOCKS)
     order = [r[0] for r in ranges if r[0].count(".") == 1]
     assert order == ["cds.forward", "cds.inputs", "cds.feature", *STAGES, "cds.refine"]
 
@@ -162,6 +169,8 @@ def test_train_step_records_its_phases(batch, tmp_path, remat):
     assert_tree(ranges, tree)
     assert all(counts[f"{s}.volume"] == counts[f"{s}.cost_reg"] == 1 for s in STAGES)
     assert counts["cds.feature"] == (2 if remat else 1)
+    assert all(counts[b] == counts["cds.feature"] for b in BLOCKS)
+    assert_tree(ranges, dict.fromkeys(BLOCKS, "cds.feature"))
     assert len(parents(ranges, "cds.feature", "cds.forward")[0]) == 1
     if remat:
         assert [len(p) for p in parents(ranges, "cds.feature", "cds.step.backward")] == [0, 1]
